@@ -1,4 +1,4 @@
-"""Headline benchmark: full coupled VLOAM pipeline frames/s on one chip.
+"""Headline benchmark: full VLOAM pipeline frames/s on one GPU.
 
 Baseline: the reference replays KITTI rosbags at 0.33x real time, i.e. an
 effective ~3.3 Hz ingest on its author's CPU (vloam_main.launch:13,
@@ -12,7 +12,8 @@ along an ~80 m trajectory that crosses the 50 m cube-grid boundary at least
 once, so per-frame insert scatters, submap-cache rebuilds, and stale-slot
 eviction are all inside the measurement — no frame is ever replayed.
 
-Prints ONE JSON line:
+Fails unless JAX sees a GPU.  Prints the device (platform, device_kind,
+count) and the card's name and power limit, then ONE JSON line:
   {"metric": "vloam_pipeline_fps", "value": N, "unit": "frames/s", "vs_baseline": N/3.3}
 """
 
@@ -143,10 +144,32 @@ def _gen_frames(cfg, ext, n_frames=None, speed=0.8, yaw_rate=0.005, snake=False,
     return frames, poses
 
 
+def describe_device() -> None:
+    """Fail without a GPU; print what the numbers were measured on."""
+    import subprocess
+
+    import jax
+
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        raise SystemExit(f"bench: no GPU (jax.devices()[0].platform = {devs[0].platform!r})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    print(f"platform: {devs[0].platform}  device_kind: {devs[0].device_kind}  "
+          f"count: {len(devs)}")
+    print(f"card: {smi.stdout.strip().splitlines()[0]}")
+
+
 def main() -> None:
     import jax
 
     from vloam_tpu.config import kitti_hdl64
+    from vloam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    describe_device()
     from vloam_tpu.models import frame_graph as fg
     from vloam_tpu.models.vloam import init_vloam_state, vloam_step
 

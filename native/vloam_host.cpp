@@ -8,7 +8,7 @@
 //                         semantics of point_cloud_util.cpp:148-176
 //   * load_png_gray     — 8/16-bit grayscale PNG decode via libpng
 //   * prefetcher        — a background thread pool that reads + pads frames
-//                         ahead of the device step so host IO overlaps TPU
+//                         ahead of the device step so host IO overlaps device
 //                         compute (double-buffered frame queue)
 //
 // Build: native/build.sh  ->  native/libvloam_host.so

@@ -32,7 +32,7 @@ def test_cell_knn_matches_brute_within_gate():
     q = cand[rng.integers(0, 3000, 500), :3] + rng.normal(0, 0.3, (500, 3)).astype(np.float32)
 
     tbl, cnt = build_cell_table(jnp.array(cand), jnp.array(mask), CELL, H, CAP)
-    d2, nbr = cell_knn(jnp.array(q), tbl, CELL, K, exact=True)
+    d2, nbr = cell_knn(jnp.array(q), tbl, CELL, K)
     d2 = np.asarray(d2)
     nbr = np.asarray(nbr)
 
@@ -65,13 +65,13 @@ def test_append_equals_rebuild():
     assert int(jnp.sum(c1)) == int(jnp.sum(c2))
     # same per-bucket membership (order within a bucket may differ)
     q = make_points(rng, 300)[:, :3]
-    d2a, _ = cell_knn(jnp.array(q), t1, CELL, K, exact=True)
-    d2b, _ = cell_knn(jnp.array(q), t2, CELL, K, exact=True)
+    d2a, _ = cell_knn(jnp.array(q), t1, CELL, K)
+    d2b, _ = cell_knn(jnp.array(q), t2, CELL, K)
     np.testing.assert_allclose(np.asarray(d2a), np.asarray(d2b), rtol=1e-5, atol=1e-6)
 
 
 def test_empty_table_reports_far():
     tbl = jnp.full((H, CAP * 4), SENTINEL)
     q = jnp.zeros((8, 3))
-    d2, _ = cell_knn(q, tbl, CELL, K, exact=True)
+    d2, _ = cell_knn(q, tbl, CELL, K)
     assert np.all(np.asarray(d2) > 1e6)

@@ -1,7 +1,6 @@
 """The coupling (C)/(D) switch has measured, reference-shaped consequences.
 
-Small-scale versions of tools/coupling_scenarios.py (full-scale numbers in
-VALIDATION_r04.json "coupling_scenarios"):
+Small-scale versions of tools/coupling_scenarios.py:
 
 * corridor (lidar-degenerate): coupled (C) must make real forward progress
   while decoupled (D) stays parked — the VO seed supplies the translation
@@ -78,8 +77,7 @@ def test_highway_coupled_degrades_decoupled_robust():
 @pytest.mark.slow
 def test_turn_onset_seed_beats_warm_start():
     """The mechanism behind the production-scale coupled win
-    (VALIDATION_r05 coupling_production_*_window, PERF.md turn-rate
-    table), pinned small with ONE short drive: at a 10 deg/frame turn
+    (tools/coupling_drive.py), pinned small with ONE short drive: at a 10 deg/frame turn
     ONSET the constant-motion warm start is wrong by the full turn rate
     while the camera measures the actual rotation, so the VO seed error
     must be several times below the warm-start error.  (Whether that

@@ -69,3 +69,31 @@ def test_pyramid_shapes():
     img = jnp.zeros((376, 1248))
     pyr = image_ops.gaussian_pyramid(img, 2)
     assert [p.shape for p in pyr] == [(376, 1248), (188, 624), (94, 312)]
+
+
+def test_slice_patches_edge_corners_match_numpy(rng):
+    """Patch gathers at the corners of a KITTI-sized 376x1241 image (the
+    extreme legal corners, where a window touches the image border) are
+    exact windows."""
+    from vloam_tpu.ops.image_ops import _slice_patches
+
+    H, W, P = 376, 1241, 32
+    img = rng.uniform(0, 255, (H, W)).astype(np.float32)
+    corners = np.array([[0, 0], [W - P, 0], [0, H - P], [W - P, H - P],
+                        [W // 2, H // 2], [1, H - P - 1]], np.int32)
+    out = np.asarray(_slice_patches(jnp.array(img), jnp.array(corners), P))
+    for k, (x, y) in enumerate(corners):
+        np.testing.assert_array_equal(out[k], img[y:y + P, x:x + P])
+
+
+def test_slice_patches_multi_matches_numpy(rng):
+    """The stacked (C, H, W) gather returns (N, C, P, P) exact windows."""
+    from vloam_tpu.ops.image_ops import _slice_patches_multi
+
+    C, H, W, P = 3, 96, 200, 16
+    imgs = rng.uniform(0, 255, (C, H, W)).astype(np.float32)
+    corners = np.stack([rng.integers(0, W - P + 1, 20), rng.integers(0, H - P + 1, 20)],
+                       -1).astype(np.int32)
+    out = np.asarray(_slice_patches_multi(jnp.array(imgs), jnp.array(corners), P))
+    for k, (x, y) in enumerate(corners):
+        np.testing.assert_array_equal(out[k], imgs[:, y:y + P, x:x + P])

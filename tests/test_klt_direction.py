@@ -38,7 +38,7 @@ from vloam_tpu.data import synthetic
 from vloam_tpu.models.visual_odometry import _ray, _unproject
 from vloam_tpu.ops import image_ops
 from vloam_tpu.ops.depth_map import build_buckets, project_cloud, query_depth
-from vloam_tpu.ops.pallas_gn import solve_pose_gn_vo
+from vloam_tpu.ops.vo_factors import solve_pose_gn_vo
 
 
 def _solve(prev_pts, curr_pts, ok, depth0, K, vc):

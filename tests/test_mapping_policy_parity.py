@@ -12,9 +12,9 @@ This test runs the SAME synthetic drive through both policies and pins the
 MO world-pose gap — converting "should be equivalent" into a committed
 number, like tests/test_oracle_parity.py does for selection/association.
 
-The 5-NN association itself needs no policy oracle here: on CPU the XLA
-knn is exact brute force (== the reference's kd-tree result), and the TPU
-lane-min kernel's approximation contract is pinned by test_pallas_knn.
+The 5-NN association itself needs no policy oracle here: both k-NN paths
+are exact brute force (== the reference's kd-tree result); the GPU kernel's
+contract is pinned by test_pallas_knn.
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Quantified parity: fixed-shape TPU reformulations vs the NumPy oracle.
+"""Quantified parity: fixed-shape reformulations vs the NumPy oracle.
 
 The oracle (vloam_tpu/testing/oracle.py) transliterates the reference's
 sequential selection/association semantics exactly.  These tests measure the

@@ -120,12 +120,12 @@ def test_fast_detector_finds_blobs(blob_pair):
     assert np.median(vals) > 10 * np.median(np.abs(st))
 
 
-def test_bits_matmul_equals_gather():
-    """The MXU difference-matmul formulation and the tap-gather formulation
-    must produce identical descriptor bits (exact f32, same integer taps)."""
+def test_bits_match_numpy_taps():
+    """Descriptor bits are the angle bin's tap comparisons s1 < s2."""
     rng = np.random.default_rng(7)
-    flat = jnp.array(rng.uniform(0, 255, (64, orb.PATCH * orb.PATCH)).astype(np.float32))
-    abin = jnp.array(rng.integers(0, orb.N_ANGLES, 64).astype(np.int32))
-    b_g = orb._descriptor_bits(flat, abin, use_matmul=False)
-    b_m = orb._descriptor_bits(flat, abin, use_matmul=True)
-    np.testing.assert_array_equal(np.asarray(b_g), np.asarray(b_m))
+    flat = rng.uniform(0, 255, (64, orb.PATCH * orb.PATCH)).astype(np.float32)
+    abin = rng.integers(0, orb.N_ANGLES, 64).astype(np.int32)
+    bits = np.asarray(orb._descriptor_bits(jnp.array(flat), jnp.array(abin)))
+    b1, b2 = np.asarray(orb._BANK1)[abin], np.asarray(orb._BANK2)[abin]
+    ref = np.take_along_axis(flat, b1, 1) < np.take_along_axis(flat, b2, 1)
+    np.testing.assert_array_equal(bits, ref)

@@ -4,8 +4,8 @@ Two pins:
   * the banded solver (block-Thomas + Woodbury, parallel/pose_graph.py)
     matches the dense solver on a 600-node biased circle with loop factors
     — identical solutions, structure exploitation is exact, not approximate;
-  * at 1500 nodes (the loop-drive scale where the dense path took 286 s,
-    VALIDATION_r04) the banded path closes the lap in interactive time.
+  * at 1500 nodes (the loop-drive scale where the dense path took 286 s)
+    the banded path closes the lap in interactive time.
 
 On a pure yaw-bias spiral with exact loop factors, GN recovers part of the
 ATE and drives the endpoint error to ~zero; the remaining interior error is
@@ -82,9 +82,8 @@ def test_banded_matches_dense_at_600():
 
 @pytest.mark.slow
 def test_banded_closes_1500_in_interactive_time():
-    """The VALIDATION_r04 loop-drive scale: dense close() took 286 s; the
-    banded path must stay well inside the <=10 s budget (VERDICT r4 #1)
-    including compile."""
+    """The loop-drive scale: dense close() took 286 s; the banded path must
+    stay well inside the <=10 s budget including compile."""
     n, speed = 1500, 1.3
     w = 2 * np.pi / n
     gt = _circle_chain(n, speed, w)

@@ -1,5 +1,5 @@
 """The pose-graph backend consumes the reference's REAL saved trajectories
-as input (VERDICT r4 #5) — not just as format fixtures:
+as input — not just as format fixtures:
 
   * revisit detection with the production drift-scaled gate must yield
     ZERO detections on real non-looping KITTI drives (false-positive side
@@ -10,8 +10,7 @@ as input (VERDICT r4 #5) — not just as format fixtures:
     MO-LO disagreement — and stay finite.
 
 Source data: /root/reference/src/vloam_main/results/<drive>/{VO,LO,MO}{d}.txt
-(writer vloam_tf.cpp:100-106); full sweep in tools/real_chains.py ->
-REALCHAINS_r05.json."""
+(writer vloam_tf.cpp:100-106); full sweep in tools/real_chains.py."""
 
 import os
 import sys

@@ -1,7 +1,7 @@
 """VO-half reference-semantics parity: ops/depth_map + solve_pose_gn_vo vs
 the sequential NumPy oracle (testing/vo_oracle.py).
 
-Quantifies the documented approximations of the TPU formulation against
+Quantifies the documented approximations of the fixed-shape formulation against
 the reference's exact sequential semantics (point_cloud_util.cpp:183-487,
 visual_odometry.cpp:339-482):
 
@@ -13,7 +13,7 @@ visual_odometry.cpp:339-482):
   * the GN/LM solve vs scipy's Huber trust-region (the Ceres analogue).
 
 Pinned numbers: depth decision agreement, co-valid |dz|, 3D-2D/2D-2D
-branch-count gaps, and the oracle-vs-TPU pose delta on exact-match
+branch-count gaps, and the oracle-vs-engine pose delta on exact-match
 synthetic camera+lidar frames.
 """
 
@@ -25,7 +25,7 @@ from vloam_tpu import geometry as geo
 from vloam_tpu.config import VisualConfig, kitti_hdl64
 from vloam_tpu.data import synthetic
 from vloam_tpu.ops.depth_map import build_buckets, project_cloud, query_depth
-from vloam_tpu.ops.pallas_gn import solve_pose_gn_vo
+from vloam_tpu.ops.vo_factors import solve_pose_gn_vo
 from vloam_tpu.testing.vo_oracle import PointCloudUtilOracle, solve_nls_all
 
 H, W = 376, 1248
@@ -85,7 +85,7 @@ def test_vo_oracle_parity():
     ang_or, t_or, c32, c22, d_or = solve_nls_all(
         prev_pts, curr_pts, status, util, K, vc.remove_vo_outlier)
 
-    # ---- TPU-formulation side (same matches; int-truncated query coords
+    # ---- engine side (same matches; int-truncated query coords
     # to isolate depth/assembly semantics from coordinate rounding) --------
     proj = jnp.array(P34 @ CAM_T_VELO, jnp.float32)
     uvz, okp = project_cloud(jnp.array(cloud0), jnp.ones(len(cloud0), bool), proj, vc)
@@ -130,7 +130,7 @@ def test_vo_oracle_parity():
     gate = disp2 <= vc.remove_vo_outlier ** 2
     n32_jax = int(np.sum(gate & val_jax))
     n22_jax = int(np.sum(gate & ~val_jax))
-    print(f"branch counts: oracle 32/22 = {c32}/{c22}, tpu = {n32_jax}/{n22_jax}")
+    print(f"branch counts: oracle 32/22 = {c32}/{c22}, engine = {n32_jax}/{n22_jax}")
     assert abs(n32_jax - c32) <= max(5, m // 50)
     assert abs(n22_jax - c22) <= max(5, m // 50)
 
@@ -154,21 +154,21 @@ def test_vo_oracle_parity():
         has_d, no_d, vc.max_iters, vc.huber_delta, vc.lm_lambda,
     )
     pose = np.asarray(pose)
-    t_tpu, q_tpu = pose[4:], pose[:4]
+    t_eng, q_eng = pose[4:], pose[:4]
 
     theta = np.linalg.norm(ang_or)
     q_or = np.concatenate([np.sin(theta / 2) * ang_or / max(theta, 1e-12),
                            [np.cos(theta / 2)]])
-    dq = abs(float(np.dot(q_or, q_tpu)))
+    dq = abs(float(np.dot(q_or, q_eng)))
     rot_gap_deg = np.degrees(2 * np.arccos(min(dq, 1.0)))
-    t_gap = np.linalg.norm(t_or - t_tpu)
+    t_gap = np.linalg.norm(t_or - t_eng)
     err_or = np.linalg.norm(t_or - t_gt)
-    err_tpu = np.linalg.norm(t_tpu - t_gt)
+    err_eng = np.linalg.norm(t_eng - t_gt)
     print(f"pose delta: |dt| {t_gap*1e3:.2f} mm, rot {rot_gap_deg*60:.2f} arcmin; "
-          f"|t_or - gt| {err_or*1e3:.2f} mm, |t_tpu - gt| {err_tpu*1e3:.2f} mm")
-    assert t_gap < 0.01            # oracle vs TPU solver agree to < 1 cm
+          f"|t_or - gt| {err_or*1e3:.2f} mm, |t_eng - gt| {err_eng*1e3:.2f} mm")
+    assert t_gap < 0.01            # oracle vs engine solver agree to < 1 cm
     assert rot_gap_deg < 0.05
-    assert err_tpu < 0.03          # and both track the exact ground truth
+    assert err_eng < 0.03          # and both track the exact ground truth
     assert err_or < 0.03
 
 
@@ -197,6 +197,6 @@ def test_outlier_gate_parity():
 
     disp2 = np.sum((np.trunc(curr_pts) - np.trunc(prev_pts)) ** 2, axis=-1)
     gate = disp2 <= vc.remove_vo_outlier ** 2
-    # the TPU gate (models/visual_odometry.py:181-183) drops the same set
+    # the engine's gate (models/visual_odometry.py:181-183) drops the same set
     assert int(np.sum(~gate)) >= 35
     assert abs((c32 + c22) - int(np.sum(gate))) <= 5

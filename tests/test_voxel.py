@@ -54,10 +54,10 @@ def test_voxel_presorted_interleaved_invalid(rng):
     """Invalid rows interleaved BETWEEN valid runs (the ring-grid padding
     layout of the less-flat reduction).  Regression: the old implementation
     dumped invalid rows into a scrap segment, breaking the monotone-index
-    contract that segment_sum(indices_are_sorted=True) relies on — TPU's
-    sorted-scatter lowering then silently zeroed most centroids (the unit
-    suite runs on CPU, which ignores the hint and hid it; caught on-chip in
-    round 5).  This pins the monotone formulation on every backend."""
+    contract that segment_sum(indices_are_sorted=True) relies on — a
+    backend that exploits the hint then silently zeroes most centroids (the
+    unit suite runs on CPU, which ignores the hint and hid it).  This pins
+    the monotone formulation on every backend."""
     import jax.numpy as jnp
 
     from vloam_tpu.ops.voxel import voxel_downsample

@@ -1,6 +1,6 @@
 """Coupling at production scale: does the VO seed pay on a turn-rich course?
 
-VERDICT r4 #6: the reference's Table-I shows coupled (C) beating decoupled
+The reference's Table-I shows coupled (C) beating decoupled
 (D) on 9/10 real sequences, but rounds 1-4 never reproduced a coupled win
 outside an 80-frame corridor toy — the synthetic drives are
 LO-warm-start-friendly (gentle snake, ~0.004 rad/frame yaw).  Real KITTI
@@ -21,7 +21,7 @@ This drive:
     solved LO delta, split by turn/straight frames — whichever mode wins,
     the telemetry says WHY.
 
-Writes VALIDATION_r05.json under "coupling_production_{C,D}" plus
+Writes chiprun_out/validation.json under "coupling_production_{C,D}" plus
 "coupling_seed_telemetry".
 """
 
@@ -134,7 +134,7 @@ def main() -> None:
     ap.add_argument("--sparse-every", type=int, default=3)
     ap.add_argument("--sparse-keep", type=float, default=0.25)
     ap.add_argument("--tag", default="", help="suffix for the record keys")
-    ap.add_argument("--out", default="VALIDATION_r05.json")
+    ap.add_argument("--out", default="chiprun_out/validation.json")
     args = ap.parse_args()
 
     from vloam_tpu.config import kitti_hdl64
@@ -210,6 +210,7 @@ def main() -> None:
     for mode, r in results.items():
         record[f"coupling_production_{mode}{tag}"] = r
     record[f"coupling_seed_telemetry{tag}"] = {"note": note, **tele_summary}
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps(tele_summary))

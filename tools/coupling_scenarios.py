@@ -9,8 +9,7 @@ Two scenarios from vloam_tpu/data/scenarios.py, each run in BOTH modes:
   constant-velocity warm start stays robust.  Reference Table-I seq 01:
   45.36 % (C) vs 2.72 % (D).
 
-Writes the results under "coupling_scenarios" in VALIDATION_r04.json.
-Runtime ~10-15 min on the 2-core box (raycast + per-frame pipeline).
+Writes the results under "coupling_scenarios" in chiprun_out/validation.json.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ import numpy as np
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=80)
-    ap.add_argument("--out", default="VALIDATION_r04.json")
+    ap.add_argument("--out", default="chiprun_out/validation.json")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
 
@@ -93,6 +92,7 @@ def main() -> None:
         ),
         **results,
     }
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as fp:
         json.dump(record, fp, indent=1)
     print(json.dumps(results))

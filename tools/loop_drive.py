@@ -13,8 +13,8 @@ a fixed proximity gate.  This drive:
     gate vs the drift-scaled gate (parallel/loop_closure.effective_radius),
     and raw-vs-refined ATE,
 
-into VALIDATION_r05.json under "loop_drive".  Runtime ~15-25 min with the
-real chip (raycast dominates); run under nohup/tmux.
+into chiprun_out/validation.json under "loop_drive".  The host-side
+raycast dominates the runtime; run under nohup/tmux.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ def main() -> None:
                     help="original-LOAM unreliable-point exclusion")
     ap.add_argument("--tag", default="",
                     help="suffix for the artifact key (loop_drive<tag>)")
-    ap.add_argument("--out", default="VALIDATION_r05.json")
+    ap.add_argument("--out", default="chiprun_out/validation.json")
     args = ap.parse_args()
 
     from vloam_tpu.config import kitti_hdl64
@@ -182,6 +182,7 @@ def main() -> None:
         with open(out_path) as fp:
             record = json.load(fp)
     record["loop_drive" + args.tag] = result
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as fp:
         json.dump(record, fp, indent=1)
     print(json.dumps(result))

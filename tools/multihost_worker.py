@@ -1,9 +1,9 @@
-"""Worker process for the multi-host (DCN) dryrun — see launch_multihost.py.
+"""Worker process for the multi-host CPU rehearsal — see launch_multihost.py.
 
 Each process owns a slice of a global CPU mesh (jax.distributed over
 loopback), runs the sharded mapping step over the GLOBAL mesh — collectives
-cross the process boundary, exactly as they would cross DCN between TPU
-hosts — and checks pose agreement against a process-local single-device run
+cross the process boundary, as they would cross the network between hosts
+— and checks pose agreement against a process-local single-device run
 of the same frames (SURVEY §5.8 / BASELINE "≥2 hosts" north star).
 
 Invoked as:
@@ -176,6 +176,7 @@ def main() -> None:
             "full_coupled_step_ok": full_ok,
             "full_coupled_max_pose_gap_vs_single_device": max(full_gaps),
         }
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
             json.dump(result, f, indent=1)
         print(json.dumps(result))

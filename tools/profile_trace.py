@@ -1,13 +1,22 @@
-"""Device-trace profiler for the production bench step.
+"""Step time and device-trace breakdown of the production step on the GPU,
+with the fused k-NN kernel and with the plain XLA k-NN path.
 
-Runs the same jitted coupled step as bench.py under ``jax.profiler.trace``,
-then aggregates the TPU device-track events from the exported
-``*.trace.json.gz`` into per-op and per-prefix totals.  This is the tool the
-optimization story in PERF.md was driven by (the per-stage numbers in its
-"Where the time goes" table come from these aggregates).
+Runs the same jitted step as bench.py (``kitti_hdl64()``, 1800-azimuth
+synthetic sweeps, pre-gridded host inputs).  For each k-NN mode it times
+the step over the same frames from the same initial state, in turns
+(plain, kernel, kernel, plain), then traces a short window per mode and
+reduces the GPU device planes of the ``.xplane.pb`` to:
 
-Usage:
-    python tools/profile_trace.py [--top 40]
+  * device busy time per step and the idle share of the window;
+  * time per stage named scope (visual_odometry, scan_registration,
+    laser_odometry, laser_mapping) and per op family scope (knn,
+    gauss_newton, patch_gather), attributed through the compiled HLO's
+    op_name metadata;
+  * the top kernels by device time.
+
+    python tools/profile_trace.py [--frames 20] [--trace-steps 8] [--dump]
+
+Writes the full report to chiprun_out/profile_trace.json.
 """
 
 from __future__ import annotations
@@ -18,187 +27,222 @@ import glob
 import gzip
 import json
 import os
+import re
 import sys
 import tempfile
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+STAGES = ("visual_odometry", "scan_registration", "laser_odometry", "laser_mapping")
+FAMILIES = ("knn", "gauss_newton", "patch_gather")
+N_WARMUP = 4
+_META = re.compile(r'^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=.*?op_name="([^"]+)"')
+_CALLS = re.compile(r'^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=.*?calls=%?([\w.\-]+)')
+_COMP = re.compile(r'^(?:ENTRY\s+)?%?([\w.\-]+)\s.*\{\s*$')
 
-def build_step_and_frames():
+
+def hlo_scopes(hlo_text: str) -> dict[str, str]:
+    """HLO instruction name -> the named-scope paths it carries: its own
+    op_name metadata and, for a fusion or call, that of every instruction
+    in the computation it calls (space-separated)."""
+    own, calls, inside = {}, {}, collections.defaultdict(list)
+    comp = None
+    for line in hlo_text.splitlines():
+        if line and not line[0].isspace():
+            m = _COMP.match(line)
+            comp = m.group(1) if m else None
+            continue
+        m = _META.match(line)
+        if m:
+            own[m.group(1)] = m.group(2)
+            if comp:
+                inside[comp].append(m.group(2))
+        m = _CALLS.match(line)
+        if m:
+            calls[m.group(1)] = m.group(2)
+    return {name: " ".join([own.get(name, "")] + inside.get(calls.get(name), []))
+            for name in set(own) | set(calls)}
+
+
+def _norm(name: str) -> str:
+    return re.sub(r"[.\-]", "_", name)
+
+
+def scope_lookup(scopes: dict[str, str]):
+    """Event -> named-scope path.  Kernels launched inside an XLA command
+    buffer carry hlo_op "command_buffer"; their kernel name is the HLO
+    instruction name with "." written "_" (``loop_select_fusion_23`` for
+    ``loop_select_fusion.23``), sometimes with one more "_N" suffix
+    (``sort_151_1``)."""
+    norm = {_norm(k): v for k, v in scopes.items()}
+
+    def find(name: str, hlo_op: str) -> str:
+        if hlo_op in scopes:
+            return scopes[hlo_op]
+        n = _norm(name)
+        if n in norm:
+            return norm[n]
+        return norm.get(re.sub(r"_\d+$", "", n), "")
+
+    return find
+
+
+def device_events(xplane_path: str):
+    """(start_ns, dur_ns, kernel name, hlo_op) of every op event on the GPU
+    device planes.  Only the per-op lines are kept: module and step lines
+    span the ops inside them."""
     import jax
-    import jax.numpy as jnp
-    import numpy as np
 
-    from vloam_tpu.config import kitti_hdl64
-    from vloam_tpu.data import synthetic
-    from vloam_tpu.data.gridding import depth_buckets, grid_cloud, less_flat_voxel_table
-    from vloam_tpu.models import frame_graph as fg
-    from vloam_tpu.models.vloam import init_vloam_state, vloam_step
-    from vloam_tpu.ops.depth_map import DepthBuckets
-
-    cfg = kitti_hdl64()
-    ext = fg.kitti_default_extrinsics()
-    vc = cfg.visual
-    boxes = synthetic.default_scene()
-    poses = synthetic.straight_trajectory(6, speed=0.8, yaw_rate=0.005)
-    K = np.asarray(ext.P_rect0)[:, :3].astype(np.float64)
-    rng = np.random.default_rng(11)
-    uv0 = np.stack(
-        [rng.uniform(20, vc.img_width - 20, 1400), rng.uniform(20, vc.img_height - 20, 1400)],
-        -1,
-    )
-    R_wc0 = poses[0][0] @ synthetic.CAM_R_WORLD.T
-    pc0, hit = synthetic.raycast_camera(R_wc0, poses[0][1], boxes, K, uv0)
-    blob_world = (pc0[hit] @ R_wc0.T) + poses[0][1]
-    proj = np.asarray(ext.P_rect0 @ ext.R_rect0 @ ext.cam_T_velo)
-    frames = []
-    for i, (R, t) in enumerate(poses):
-        cloud = synthetic.simulate_scan(R, t, boxes, n_azimuth=1800, noise=0.005, seed=i)
-        R_wc = R @ synthetic.CAM_R_WORLD.T
-        img = synthetic.render_blob_image((blob_world - t) @ R_wc, K, vc.img_height, vc.img_width)
-        grid, gmask, _ = grid_cloud(cloud, cfg.scan)
-        bu, bv, bz, bc = depth_buckets(grid.reshape(-1, 4), gmask.reshape(-1), proj, vc)
-        buckets = DepthBuckets(jnp.array(bu), jnp.array(bv), jnp.array(bz), jnp.array(bc))
-        sg, bs, nr = less_flat_voxel_table(grid, gmask, cfg.scan)
-        lf = (jnp.array(sg), jnp.array(bs), jnp.array(nr, np.int32))
-        frames.append((jnp.array(img), jnp.array(grid), jnp.array(gmask), buckets, lf))
-
-    step = jax.jit(
-        lambda s, i, c, m, b, t: vloam_step(
-            s, i, c, m, ext, cfg, pre_gridded=True, pre_buckets=b, pre_lf_table=t
-        ),
-        donate_argnums=0,
-    )
-    state = init_vloam_state(cfg)
-    return step, state, frames
-
-
-def aggregate(trace_dir: str, n_steps: int, top: int) -> None:
-    paths = glob.glob(os.path.join(trace_dir, "**", "*.trace.json.gz"), recursive=True)
-    if not paths:
-        print("no trace files found under", trace_dir)
-        return
-    # Merge events from every exported trace file (multi-device / multi-host
-    # exports write one file per host; taking only the newest silently drops
-    # the other devices' tracks).
-    events = []
-    for p in sorted(paths):
-        with gzip.open(p, "rt") as f:
-            events.extend(json.load(f).get("traceEvents", []))
-    if len(paths) > 1:
-        print(f"merged {len(paths)} trace files")
-    # Device-track pids: process names containing TPU / device.
-    dev_pids = set()
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            nm = e.get("args", {}).get("name", "")
-            if "TPU" in nm or "/device" in nm.lower():
-                dev_pids.add(e["pid"])
-    if not dev_pids:
-        print(
-            "WARNING: no TPU/device process tracks found in the trace "
-            "(CPU-only run?) — nothing to aggregate."
-        )
-        return
-    # XLA trace exports nest parallel tracks under the device process:
-    # 'XLA Modules' (whole-module spans), 'XLA Ops' (per-op), 'XLA TraceMe',
-    # plus step tracks.  Summing all ph=='X' events across every thread
-    # double-counts module spans over the ops inside them, so restrict to
-    # the 'XLA Ops' tids only.
-    op_tids = set()
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "thread_name":
-            if e.get("args", {}).get("name") == "XLA Ops" and e.get("pid") in dev_pids:
-                op_tids.add((e["pid"], e.get("tid")))
-    if not op_tids:
-        print(
-            "WARNING: device tracks found but no 'XLA Ops' thread — falling "
-            "back to all device threads (totals may double-count module spans)."
-        )
-    # Collect op events, then convert to SELF time: control-flow ops (cond /
-    # while / fusion regions) export spans that contain their body ops on the
-    # same thread, so raw durations double-count.  Subtract each event's
-    # directly-nested children via an interval sweep per tid.
+    pd = jax.profiler.ProfileData.from_file(xplane_path)
     evs = []
-    for e in events:
-        if e.get("ph") != "X" or e.get("pid") not in dev_pids:
+    for plane in pd.planes:
+        if not plane.name.startswith("/device:GPU"):
             continue
-        if op_tids and (e["pid"], e.get("tid")) not in op_tids:
-            continue
-        evs.append((e["pid"], e.get("tid"), e.get("ts", 0), e.get("dur", 0),
-                    e.get("name", "?")))
-    by_op: dict[str, float] = collections.defaultdict(float)
-    cnt: dict[str, int] = collections.defaultdict(int)
-    total = 0.0
-    by_tid: dict[tuple, list] = collections.defaultdict(list)
-    for pid, tid, ts, dur, name in evs:
-        by_tid[(pid, tid)].append((ts, dur, name))
-    for tid_evs in by_tid.values():
-        tid_evs.sort(key=lambda e: (e[0], -e[1]))   # by start, longest first
-        stack = []  # (end, child_sum_accumulator_index)
-        selfs = []
-        for ts, dur, name in tid_evs:
-            while stack and stack[-1][0] <= ts:
-                stack.pop()
-            if stack:
-                selfs[stack[-1][1]][1] -= dur       # subtract from parent
-            selfs.append([name, dur])
-            stack.append((ts + dur, len(selfs) - 1))
-        for name, self_dur in selfs:
-            ms = max(self_dur, 0) / 1e3
-            by_op[name] += ms
-            cnt[name] += 1
-            total += ms
-    print(f"device total {total:.2f} ms over {n_steps} steps = {total/n_steps:.3f} ms/step\n")
-    print(f"{'ms/step':>9}  {'count':>6}  op")
-    for name, ms in sorted(by_op.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"{ms/n_steps:9.3f}  {cnt[name]//n_steps:6d}  {name[:110]}")
-    # prefix rollup (fusion names like fusion.123 share cost classes poorly;
-    # group by leading alpha token)
-    by_pref: dict[str, float] = collections.defaultdict(float)
-    for name, ms in by_op.items():
-        pref = name.split(".")[0].split("(")[0]
-        by_pref[pref] += ms
-    print("\nby prefix:")
-    for name, ms in sorted(by_pref.items(), key=lambda kv: -kv[1])[:20]:
-        print(f"{ms/n_steps:9.3f}  {name[:80]}")
+        for line in plane.lines:
+            if "Modules" in line.name or "Step" in line.name or "Launch" in line.name:
+                continue
+            for ev in line.events:
+                st = dict(ev.stats)
+                evs.append((ev.start_ns, ev.duration_ns, ev.name,
+                            str(st.get("hlo_op", ev.name)), line.name))
+    return evs
+
+
+def busy_ns(evs) -> float:
+    """Length of the union of the event intervals."""
+    total, end = 0.0, -1.0
+    for s, d, *_ in sorted(evs):
+        if s >= end:
+            total += d
+            end = s + d
+        elif s + d > end:
+            total += s + d - end
+            end = s + d
+    return total
+
+
+def reduce_trace(xplane_path: str, scopes: dict[str, str], n_steps: int,
+                 window_ns: float, top: int = 25) -> dict:
+    evs = device_events(xplane_path)
+    total = sum(d for _, d, *_ in evs)
+    by_stage, by_family = collections.Counter(), collections.Counter()
+    by_kernel = collections.Counter()
+    find = scope_lookup(scopes)
+    for _, d, name, hlo_op, _ in evs:
+        path = find(name, hlo_op)
+        stage = next((s for s in STAGES if f"/{s}/" in f"/{path}/"), "other")
+        by_stage[stage] += d
+        fam = next((f for f in FAMILIES if f"/{f}/" in f"/{path}/" or f in name), None)
+        if fam:
+            by_family[fam] += d
+        by_kernel[name] += d
+    busy = busy_ns(evs)
+    ms = lambda ns: ns / 1e6 / n_steps  # noqa: E731
+    return {
+        "device_ops_ms_per_step": ms(total),
+        "device_busy_ms_per_step": ms(busy),
+        "idle_share": 1.0 - busy / window_ns if window_ns else None,
+        "stage_ms_per_step": {k: ms(v) for k, v in by_stage.most_common()},
+        "family_ms_per_step": {k: ms(v) for k, v in by_family.most_common()},
+        "family_share_of_ops": {k: v / total for k, v in by_family.most_common()} if total else {},
+        "top_kernels_ms_per_step": {k: ms(v) for k, v in by_kernel.most_common(top)},
+        "n_events": len(evs),
+    }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--top", type=int, default=40)
-    ap.add_argument("--steps", type=int, default=12)
-    ap.add_argument(
-        "--outdir",
-        default=None,
-        help="write the trace here and keep it (for TensorBoard); "
-        "default is a temp dir removed after aggregation",
-    )
+    ap.add_argument("--frames", type=int, default=20, help="timed frames per turn")
+    ap.add_argument("--trace-steps", type=int, default=8)
+    ap.add_argument("--dump", action="store_true",
+                    help="print a sample of raw device events (to read a trace by hand)")
+    ap.add_argument("--keep", action="store_true",
+                    help="keep each trace and its compiled HLO text (gzip) under "
+                         "chiprun_out/trace_<mode>_*/ for offline reduction")
     args = ap.parse_args()
 
     import shutil
 
     import jax
-    import numpy as np
 
-    step, state, frames = build_step_and_frames()
-    for f in frames[:2]:
-        state, out = step(state, *f)
-    np.asarray(out.mo_pose)
+    import bench
+    from vloam_tpu.config import kitti_hdl64
+    from vloam_tpu.models import frame_graph as fg
+    from vloam_tpu.models.vloam import init_vloam_state, vloam_step
+    from vloam_tpu.ops.knn import knn_mode
+    from vloam_tpu.utils.compile_cache import enable_compile_cache
 
-    trace_dir = args.outdir or tempfile.mkdtemp(prefix="vloam_trace_")
-    with jax.profiler.trace(trace_dir):
-        for k in range(args.steps):
-            f = frames[2 + k % (len(frames) - 2)]
-            state, out = step(state, *f)
-        np.asarray(out.mo_pose)
-    print("trace dir:", trace_dir)
-    try:
-        aggregate(trace_dir, args.steps, args.top)
-    finally:
-        if args.outdir is None:
-            shutil.rmtree(trace_dir, ignore_errors=True)
-            print("(temp trace removed; pass --outdir to keep it for TensorBoard)")
+    enable_compile_cache()
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit("profile_trace: no GPU found")
+    cfg = kitti_hdl64()
+    ext = fg.kitti_default_extrinsics()
+    frames, _ = bench._gen_frames(cfg, ext, n_frames=N_WARMUP + args.frames)
+
+    steps, hlo = {}, {}
+    for mode in ("plain", "kernel"):
+        with knn_mode(mode):
+            f = jax.jit(lambda s, i, c, m, b, t: vloam_step(
+                s, i, c, m, ext, cfg, pre_gridded=True, pre_buckets=b, pre_lf_table=t),
+                donate_argnums=0)
+            t0 = time.perf_counter()
+            lowered = f.lower(init_vloam_state(cfg), *frames[0])
+            compiled = lowered.compile()
+            hlo[mode] = (compiled.as_text(), time.perf_counter() - t0)
+            steps[mode] = compiled
+
+    def turn(mode):
+        state = init_vloam_state(cfg)
+        for fr in frames[:N_WARMUP]:
+            state, out = steps[mode](state, *fr)
+        jax.block_until_ready(out)
+        t0 = time.perf_counter()
+        for fr in frames[N_WARMUP:]:
+            state, out = steps[mode](state, *fr)
+        jax.block_until_ready(out)
+        return (time.perf_counter() - t0) / args.frames * 1e3, state
+
+    times = collections.defaultdict(list)
+    for mode in ("plain", "kernel", "kernel", "plain"):
+        ms, _ = turn(mode)
+        times[mode].append(ms)
+        print(f"step [{mode}] {ms:.3f} ms/frame over {args.frames} frames")
+
+    report = {"card_ms_per_frame": dict(times),
+              "compile_s": {m: hlo[m][1] for m in hlo}}
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    for mode in ("plain", "kernel"):
+        state = init_vloam_state(cfg)
+        for fr in frames[:N_WARMUP]:
+            state, out = steps[mode](state, *fr)
+        jax.block_until_ready(out)
+        tdir = tempfile.mkdtemp(prefix=f"trace_{mode}_", dir=out_dir)
+        with jax.profiler.trace(tdir):
+            t0 = time.perf_counter_ns()
+            for fr in frames[N_WARMUP:N_WARMUP + args.trace_steps]:
+                state, out = steps[mode](state, *fr)
+            jax.block_until_ready(out)
+            window = time.perf_counter_ns() - t0
+        path = glob.glob(os.path.join(tdir, "**", "*.xplane.pb"), recursive=True)[0]
+        if args.dump and mode == "kernel":
+            for ev in device_events(path)[:40]:
+                print("event", ev)
+        r = reduce_trace(path, hlo_scopes(hlo[mode][0]), args.trace_steps, window)
+        r["window_ms_per_step"] = window / 1e6 / args.trace_steps
+        report[f"trace_{mode}"] = r
+        if args.keep:
+            with gzip.open(os.path.join(tdir, "hlo.txt.gz"), "wt") as fh:
+                fh.write(hlo[mode][0])
+        else:
+            shutil.rmtree(tdir, ignore_errors=True)
+        print(f"trace [{mode}]: " + json.dumps({k: r[k] for k in (
+            "device_busy_ms_per_step", "idle_share", "stage_ms_per_step",
+            "family_ms_per_step")}))
+    with open(os.path.join(out_dir, "profile_trace.json"), "w") as fh:
+        json.dump(report, fh, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
-"""vloam_tpu — a TPU-native visual-lidar odometry and mapping engine.
+"""vloam_tpu — a JAX visual-lidar odometry and mapping engine for the GPU.
 
 A from-scratch JAX/XLA/Pallas re-design of the VLOAM pipeline (reference:
 liuzm-slam/VLOAM-NOTED, a ROS1/C++/Ceres/PCL stack).  Nothing here is a
 translation: callbacks become pure scan-step functions over pytree state,
-Ceres autodiff + DENSE_QR becomes batched Gauss-Newton with analytic
-Jacobians, kd-trees become MXU matmul nearest-neighbour searches, and the
+Ceres autodiff + DENSE_QR becomes batched Gauss-Newton with forward-mode
+Jacobians, kd-trees become brute-force nearest-neighbour sweeps, and the
 rolling voxel-cube map becomes a fixed-shape block-cyclic cube grid that
 shards across a device mesh.
 
@@ -23,12 +23,13 @@ import jax as _jax
 
 # This is a metric-scale geometry engine, not a neural net: matmuls carry
 # pixel coordinates (~1e3), world-frame points (km after long drives), and
-# Gauss-Newton normal equations.  The TPU default bf16 MXU pass loses
-# ~|value|^2 * 2^-8 per product — measured 67 m^2 error / 0.81 recall@5 in
-# the correspondence distances at +-60 m coords (ops/knn.py docstring).
-# f32 ("highest", 6-pass bf16 decomposition) is the only safe default;
-# tolerant hot spots (descriptor matching, image stencils) may opt down
-# explicitly via precision= at the call site.
+# Gauss-Newton normal equations.  On the GPU an f32 matmul may otherwise run
+# in TF32 (10-bit mantissa), losing ~|value|^2 * 2^-11 per product — square
+# metres in the k-NN distances at +-60 m coordinates, which reorders
+# neighbours (bf16 measured: 67 m^2 error, 0.81 recall@5; ops/knn.py).
+# "highest" keeps every f32 matmul in full f32; tolerant hot spots (the KLT
+# window resampling, descriptor sampling) opt down to explicit bf16
+# operands at the call site.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from vloam_tpu.config import VloamConfig  # noqa: F401

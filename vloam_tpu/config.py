@@ -4,7 +4,7 @@ Surfaces every runtime flag of the reference (SURVEY.md §5.6 inventory:
 /root/reference/src/vloam_main/launch/vloam_main.launch:4-16,
 loam_velodyne_HDL_64_kitti.launch:3-16) *plus* the numeric knobs the
 reference hard-codes, *plus* the fixed-shape capacities that a jit-once
-TPU design needs (the reference used unbounded std::vectors).
+accelerator design needs (the reference used unbounded std::vectors).
 
 Everything is a frozen dataclass so configs hash and can be closed over by
 jitted step functions as static arguments.
@@ -48,8 +48,7 @@ class ScanConfig:
                                       # on the 300-frame validation drive it
                                       # improves MO accuracy 5.2x (0.626% ->
                                       # 0.121% trans, ATE 2.12 -> 0.13 m) at
-                                      # identical fps (VALIDATION_r04
-                                      # excl_decoupled_D; synthetic-world
+                                      # (synthetic-world
                                       # measurement — raycast worlds have
                                       # sharper silhouettes than real lidar).
                                       # Recommended ON for deployment.
@@ -104,7 +103,8 @@ class MappingConfig:
                                       # A-LOAM corner maps on KITTI run ~5-15k after
                                       # the 0.4m voxel filter — 16k is ~2x headroom
     submap_surf_cap: int = 49152      # gathered submap surf points (~20-40k typical
-                                      # at 0.8m resolution; 384*128 stays MXU-tiled)
+                                      # at 0.8m resolution; a multiple of the k-NN
+                                      # kernel's candidate tile)
     n_neighbors: int = 5              # 5-NN PCA/plane fits (laser_mapping.cpp:554,633)
     neighbor_dist_sq: float = 1.0     # pointSearchSqDis[4] < 1.0 gate (laser_mapping.cpp:557,642)
     eigen_ratio: float = 3.0          # lambda2 > 3*lambda1 line validity (laser_mapping.cpp:591)
@@ -120,7 +120,7 @@ class MappingConfig:
     insert_dedup: bool = True         # ours: gate insertions on nearest-map-point
                                       # distance instead of re-voxelising the 75
                                       # window cubes every frame (laser_mapping.cpp:793-808)
-                                      # — same bounded density, ~30x cheaper on TPU
+                                      # — same bounded density, far fewer scatters
     insert_dedup_factor: float = 0.5  # gate radius = factor * voxel resolution
 
 
@@ -129,7 +129,7 @@ class VisualConfig:
     """VO frontend + solver (visual_odometry.cpp, image_util.cpp, point_cloud_util.cpp)."""
 
     img_height: int = 376             # padded KITTI gray left (raw 375/376 x 1241/1242)
-    img_width: int = 1248             # padded to a lane-friendly multiple of 8
+    img_width: int = 1248             # KITTI's 1241/1242 padded to a multiple of 8
     # Detector (image_util.h DetectorType): the full reference enum is
     # available through vloam_tpu.image_util.det_keypoints —
     # shitomasi | brisk | fast | orb | akaze | sift (ops/{image_ops,brisk,
@@ -157,7 +157,7 @@ class VisualConfig:
     clahe: bool = False
     clahe_clip: float = 2.0
     # KLT (image_util.cpp:526,562-570)
-    optical_flow_match: bool = True   # our default frontend: pyramidal LK (TPU-friendly)
+    optical_flow_match: bool = True   # our default frontend: pyramidal LK (fixed-shape)
     klt_window: int = 15
     klt_levels: int = 2               # maxLevel=2 => 3 pyramid levels in OpenCV terms;
                                       # needed for prior-less frames (sequence start)
@@ -176,7 +176,7 @@ class VisualConfig:
                                       # the seeded backward pass cannot)
     klt_patch_slack: int = 8          # extra patch margin so per-level iterations
                                       # stay inside one contiguous slice; 8 makes the
-                                      # patch 2*(7+8+1)=32 px — lane-aligned on TPU
+                                      # patch 2*(7+8+1)=32 px
                                       # (slack 4 measurably degrades prior-less
                                       # tracking: the coarse-level upsample error
                                       # clips against the patch)

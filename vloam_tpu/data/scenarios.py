@@ -9,7 +9,7 @@ highway seq 01 (45.36 % vs 2.72 %).  Both behaviors have a mechanism:
   forward motion, so the decoupled warm start (laser_odometry.cpp:237-250
   comments; previous-delta seed) never picks up speed, while the coupled
   VO seed supplies the unobservable component from wall texture.
-  Coupled (C) must WIN here.  Measured nuance (VALIDATION_r04): the VO
+  Coupled (C) must WIN here.  Measured nuance: the VO
   chain itself recovers ~0.98 of the true advance, but LO's curvature
   picks on this world are dominated by sensor-relative artifacts (distant
   grazing-ground arcs, range-cutoff boundaries — the same false edges the

@@ -4,7 +4,7 @@ The reference accumulates world poses in double precision throughout —
 Ceres parameter blocks are ``double[]`` and the accumulation
 ``t_w_curr = t_w_curr + q_w_curr * t_last_curr`` runs on Eigen doubles
 (laser_odometry.cpp:524-525).  The device pipeline solves each frame in
-f32 (TPU-native), and the driver rebases every frame's f32 delta onto
+f32 on the device, and the driver rebases every frame's f32 delta onto
 these f64 chains, so per-frame compose rounding does not random-walk into
 the kilometre-scale world positions (at |t| ~ 2 km an f32 ulp is ~1e-4 m
 per compose; tools/validate_drive.py measures the realised divergence).

@@ -1,7 +1,7 @@
 """ImageUtil facade — the reference's 2D feature frontend as one dispatch
 surface (src/visual_odometry/include/visual_odometry/image_util.h:16-101).
 
-Maps the reference's enums onto the TPU-native ops:
+Maps the reference's enums onto the engine's fixed-shape ops:
 
   DetectorType    {ShiTomasi, BRISK, FAST, ORB, AKAZE, SIFT}
                   -> det_keypoints(detector_type=...)

@@ -2,7 +2,7 @@
 
 The reference keeps a 21x21x11 grid of unbounded point-cloud cubes and
 physically shuffles 4851 shared_ptrs through six while-loops whenever the
-robot nears a grid border (laser_mapping.cpp:252-444).  The TPU re-design
+robot nears a grid border (laser_mapping.cpp:252-444).  The re-design here
 makes recentering free: cube slots are addressed **block-cyclically**
 (slot = world_cube_coord mod grid_dims) and each slot remembers which world
 cube it currently stores.  Moving on simply lets new world cubes lazily
@@ -12,7 +12,7 @@ the slot axis (see vloam_tpu.parallel).
 
 Per frame: voxel-downsample the input features (laser_mapping.cpp:491-500),
 gather the 5x5x3-cube submap by masked slot lookup (:448-485), associate
-with blocked MXU 5-NN + closed-form 3x3 eigen/solve line & plane fits
+with brute-force 5-NN (ops/knn.py) + closed-form 3x3 eigen/solve line & plane fits
 (:545-699), run batched GN (2 outer x 4 inner, Huber 0.1, :526,712), update
 the wmap_wodom correction (:147-151), then scatter the registered features
 into their cubes and re-voxel-filter the submap window (:741-808).
@@ -28,9 +28,8 @@ import jax.numpy as jnp
 from vloam_tpu import geometry as geo
 from vloam_tpu.config import VloamConfig
 from vloam_tpu.ops import lidar_factors
-from vloam_tpu.ops.gauss_newton import solve_pose_gn  # noqa: F401 (distributed path)
-from vloam_tpu.ops.pallas_gn import solve_pose_gn_lidar
-from vloam_tpu.ops.knn import knn, nn1
+from vloam_tpu.ops.knn import knn, morton_sort
+from vloam_tpu.ops.lidar_factors import solve_pose_gn_lidar
 from vloam_tpu.ops.linalg3 import eigh3x3_sym, solve3x3_sym
 from vloam_tpu.ops.voxel import voxel_downsample
 
@@ -38,9 +37,8 @@ from vloam_tpu.ops.voxel import voxel_downsample
 class MapState(NamedTuple):
     # Corner and surf cubes live in ONE buffer: rows [0, corner_cap) of each
     # slot are its corner points, rows [corner_cap, corner_cap + surf_cap)
-    # its surf points.  TPU scatters cost ~0.5 ms of FIXED overhead per op
-    # regardless of row count, so the per-frame insert does ONE sort + ONE
-    # scatter + ONE count pass for both feature types instead of two of each.
+    # its surf points, so the per-frame insert does ONE sort + ONE scatter +
+    # ONE count pass for both feature types instead of two of each.
     cube_pts: jax.Array      # (n_cubes, corner_cap + surf_cap, 4)
     corner_cnt: jax.Array    # (n_cubes,) int32
     surf_cnt: jax.Array      # (n_cubes,)
@@ -151,8 +149,7 @@ def fit_corner_lines(stack, stack_mask, nbr, d2, cfg):
     nbr: (M, 5, 3) neighbour xyz; d2: (M, 5) their squared distances.
 
     Covariance components and the eigensolve run in structure-of-arrays form
-    (full-lane (M,) vectors) — the (M, 3, 3) formulation put the vector axis
-    in the lane dimension and cost ~1 ms/frame of kLoop fusions."""
+    ((M,) vectors per component) rather than as (M, 3, 3) matrices."""
     mc = cfg.mapping
     x, y, z = nbr[..., 0], nbr[..., 1], nbr[..., 2]          # (M, 5) each
     cx, cy, cz = jnp.mean(x, axis=1), jnp.mean(y, axis=1), jnp.mean(z, axis=1)
@@ -176,7 +173,7 @@ def fit_surf_planes(stack, stack_mask, nbr, d2, cfg):
     """Least-squares plane fit A n = -1 from 5-NN (laser_mapping.cpp:637-681).
 
     Component form throughout (see fit_corner_lines): normal-equation
-    components and the Cramer solve are full-lane (M,) vector ops."""
+    components and the Cramer solve are (M,) vector ops."""
     mc = cfg.mapping
     x, y, z = nbr[..., 0], nbr[..., 1], nbr[..., 2]          # (M, 5) each
     a = jnp.sum(x * x, axis=1)
@@ -197,25 +194,21 @@ def fit_surf_planes(stack, stack_mask, nbr, d2, cfg):
     return stack[:, :3], n_unit, d, valid
 
 
-def _corner_correspondences(pose, stack, stack_mask, cand, cand_mask, cfg,
-                            cand_count=None, query_count=None):
+def _corner_correspondences(pose, stack, stack_mask, cand, cand_mask, cfg):
     """5-NN + PCA line fit -> virtual edge endpoints (laser_mapping.cpp:545-604).
 
     Also returns the 1-NN squared distance (d2[:, 0]) so the insert-dedup
     gate can reuse it instead of paying another full distance pass."""
     q = geo.pose_apply(pose, stack[:, :3])
-    d2, idx = knn(q, cand[:, :3], cand_mask, cfg.mapping.n_neighbors,
-                  cand_count=cand_count, query_count=query_count)
+    d2, idx = knn(q, cand[:, :3], cand_mask, cfg.mapping.n_neighbors)
     nbr = jnp.take(cand[:, :3], idx, axis=0)                # (M, 5, 3)
     return fit_corner_lines(stack, stack_mask, nbr, d2, cfg) + (d2[:, 0],)
 
 
-def _surf_correspondences(pose, stack, stack_mask, cand, cand_mask, cfg,
-                          cand_count=None, query_count=None):
+def _surf_correspondences(pose, stack, stack_mask, cand, cand_mask, cfg):
     """5-NN + least-squares plane fit A n = -1 (laser_mapping.cpp:626-699)."""
     q = geo.pose_apply(pose, stack[:, :3])
-    d2, idx = knn(q, cand[:, :3], cand_mask, cfg.mapping.n_neighbors,
-                  cand_count=cand_count, query_count=query_count)
+    d2, idx = knn(q, cand[:, :3], cand_mask, cfg.mapping.n_neighbors)
     nbr = jnp.take(cand[:, :3], idx, axis=0)                # (M, 5, 3)
     return fit_surf_planes(stack, stack_mask, nbr, d2, cfg) + (d2[:, 0],)
 
@@ -225,9 +218,7 @@ def _scatter_insert_pair(
     cube_pts, corner_cnt, surf_cnt, cube_coord, cfg, slot_offset=0,
 ):
     """Append BOTH feature types' world-frame points into their cube slots
-    (block-cyclic) with one sort, one point scatter, and one count pass —
-    TPU scatters/sorts carry ~0.5 ms fixed overhead each, so op count, not
-    row count, is what this path pays for.
+    (block-cyclic) with one sort, one point scatter, and one count pass.
 
     Stale slots (holding an evicted world cube) are reset before appending.
     ``slot_offset`` shifts global slot ids into this shard's local range
@@ -325,6 +316,16 @@ def _refilter_cubes(cube_pts, corner_cnt, surf_cnt, slots, cfg):
     return cube_pts, corner_cnt, surf_cnt
 
 
+def _prune_radius(cfg: VloamConfig) -> float:
+    """Radius-clamped association: pruning is exact only if every consumer
+    gates correspondences at d2 <= r^2.  The fits gate at neighbor_dist_sq
+    AND the insert-dedup gate at (insert_dedup_factor * resolution)^2 both
+    read these distances, so the radius covers the max of the two."""
+    mc = cfg.mapping
+    r_dedup = mc.insert_dedup_factor * max(mc.line_resolution, mc.plane_resolution)
+    return max(float(mc.neighbor_dist_sq) ** 0.5, r_dedup) * 1.001
+
+
 def mapping_step(
     state: MapState,
     corner_in: jax.Array, corner_in_mask: jax.Array,   # LO less-sharp cloud (xyzw)
@@ -349,18 +350,12 @@ def mapping_step(
         max_grid=512, presorted=True,
     )
     # Morton-sort the stacks: ring/azimuth order sweeps the whole 360° scan,
-    # so a 256-row query block would span the scene and defeat the AABB tile
-    # pruning inside the 5-NN kernel.  Sorting by local coords keeps world
-    # blocks equally compact (rigid transform), and the order is irrelevant
-    # to fits / GN / inserts (only f32 summation order shifts, sub-mm).
-    # TPU-only: the CPU/GPU fallback k-NN does no tile pruning, so sorting
-    # there would only perturb the reference-exact test numerics.
-    _tpu = jax.default_backend() not in ("cpu", "gpu")
-    if _tpu:
-        from vloam_tpu.ops.knn import morton_sort
-
-        corner_stack, cs_mask = morton_sort(corner_stack, cs_mask, cell=2.0)
-        surf_stack, ss_mask = morton_sort(surf_stack, ss_mask, cell=2.0)
+    # so a query block would span the scene and defeat the box pruning of
+    # the k-NN kernel.  Sorting by local coords keeps world blocks equally
+    # compact (rigid transform), and the order is irrelevant to fits / GN /
+    # inserts (only f32 summation order shifts, sub-mm).
+    corner_stack, cs_mask = morton_sort(corner_stack, cs_mask, cell=2.0)
+    surf_stack, ss_mask = morton_sort(surf_stack, ss_mask, cell=2.0)
 
     center = cube_coord_of(geo.pose_t(pose0)[None, :], mc.cube_size)[0]
     coords = _submap_coords(center, cfg)
@@ -372,16 +367,13 @@ def mapping_step(
         # and inserts are appended to the cache below.
         def rebuild(_):
             (cp, cm), (sp, sm), _, _ = _gather_submap(state, coords, cfg)
-            if jax.default_backend() not in ("cpu", "gpu"):
-                # Morton-sort the rebuilt cache (world coords, around the
-                # window centre) so candidate tiles are compact for AABB
-                # pruning; the per-frame appended tail is naturally local
-                # (points near the current pose) and needs no re-sort.
-                from vloam_tpu.ops.knn import morton_sort
-
-                org = (center.astype(jnp.float32) * mc.cube_size)[None, :]
-                cp, cm = morton_sort(cp, cm, cell=4.0, origin=org)
-                sp, sm = morton_sort(sp, sm, cell=4.0, origin=org)
+            # Morton-sort the rebuilt cache (world coords, around the window
+            # centre) so candidate tiles are compact for box pruning; the
+            # per-frame appended tail is naturally local (points near the
+            # current pose) and needs no re-sort.
+            org = (center.astype(jnp.float32) * mc.cube_size)[None, :]
+            cp, cm = morton_sort(cp, cm, cell=4.0, origin=org)
+            sp, sm = morton_sort(sp, sm, cell=4.0, origin=org)
             return cp, jnp.sum(cm).astype(jnp.int32), sp, jnp.sum(sm).astype(jnp.int32)
 
         def cached(_):
@@ -400,32 +392,22 @@ def mapping_step(
     enough = (c_n > mc.min_map_corner) & (s_n > mc.min_map_surf)
 
     inf = jnp.float32(3.4e38)
-    # Dynamic valid-prefix lengths: the pallas knn skips tiles past these,
-    # so association cost tracks live submap/stack occupancy, not capacity.
+    # Valid-prefix lengths of the stacks: the k-NN kernel skips query
+    # blocks past them.
     cs_n = jnp.sum(cs_mask, dtype=jnp.int32)
     ss_n = jnp.sum(ss_mask, dtype=jnp.int32)
+    r_prune = _prune_radius(cfg)
 
     def optimize(pose):
-        from vloam_tpu.ops.pallas_knn import knn_lanemin_pair
-
         for _ in range(mc.outer_iters):
-            # ONE fused kernel launch + epilogue for both 5-NN problems
-            # (corner stack vs corner submap, surf stack vs surf submap)
+            # two 5-NN problems: corner stack vs corner submap, surf stack
+            # vs surf submap
             qc = geo.pose_apply(pose, corner_stack[:, :3])
             qs = geo.pose_apply(pose, surf_stack[:, :3])
-            # Radius-clamped search: pruning is exact only if every consumer
-            # gates correspondences at d2 <= r_prune^2.  The fits gate at
-            # neighbor_dist_sq AND the insert-dedup gate at
-            # (insert_dedup_factor * resolution)^2 both read these distances,
-            # so r_prune covers the max of the two radii.
-            r_dedup = mc.insert_dedup_factor * max(mc.line_resolution, mc.plane_resolution)
-            r_prune = max(float(mc.neighbor_dist_sq) ** 0.5, r_dedup) * 1.001
-            (d2c, idxc), (d2s, idxs) = knn_lanemin_pair(
-                qc, c_pts[:, :3], c_mask, mc.n_neighbors,
-                qs, s_pts[:, :3], s_mask, mc.n_neighbors,
-                a_counts=(cs_n, c_n), b_counts=(ss_n, s_n),
-                prune_radius=(r_prune, r_prune),
-            )
+            d2c, idxc = knn(qc, c_pts[:, :3], c_mask, mc.n_neighbors,
+                            query_count=cs_n, prune_radius=r_prune)
+            d2s, idxs = knn(qs, s_pts[:, :3], s_mask, mc.n_neighbors,
+                            query_count=ss_n, prune_radius=r_prune)
             nbr_c = jnp.take(c_pts[:, :3], idxc, axis=0)
             p_e, a_e, b_e, v_e = fit_corner_lines(corner_stack, cs_mask, nbr_c, d2c, cfg)
             nn_c = d2c[:, 0]
@@ -433,9 +415,6 @@ def mapping_step(
             p_s, n_s, d_s, v_s = fit_surf_planes(surf_stack, ss_mask, nbr_s, d2s, cfg)
             nn_s = d2s[:, 0]
 
-            # All 4 inner iterations fuse into ONE Pallas launch on TPU
-            # (analytic Jacobians + in-kernel 6x6 solves); solve_pose_gn is
-            # the CPU fallback inside solve_pose_gn_lidar.
             pose = solve_pose_gn_lidar(
                 pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
                 mc.inner_iters, mc.huber_delta, mc.lm_lambda,

@@ -1,7 +1,7 @@
 """Scan-to-scan lidar odometry (LO) — reference: laser_odometry.cpp:199-584.
 
-TPU re-design: the per-point kd-tree queries + ring-window scans of the
-reference become two masked-argmin sweeps over an MXU distance matrix —
+Re-design: the per-point kd-tree queries + ring-window scans of the
+reference become brute-force k-NN sweeps (ops/knn.py) plus masked argmins —
 the ring constraint (NEARBY_SCAN, laser_odometry.h:94-95) is just another
 mask on the candidate axis.  Correspondences are re-built twice (the outer
 iterations at laser_odometry.cpp:224) and each association feeds a batched
@@ -20,8 +20,8 @@ import jax.numpy as jnp
 from vloam_tpu import geometry as geo
 from vloam_tpu.config import VloamConfig
 from vloam_tpu.ops import lidar_factors
-from vloam_tpu.ops.knn import masked_argmin
-from vloam_tpu.ops.pallas_gn import solve_pose_gn_lidar
+from vloam_tpu.ops.knn import knn, masked_argmin
+from vloam_tpu.ops.lidar_factors import solve_pose_gn_lidar
 from vloam_tpu.ops.scan_registration import ScanFeatures
 
 _INF = jnp.float32(3.4e38)
@@ -126,24 +126,14 @@ def solve_f2f(
     """
     oc = cfg.odom
 
-    # valid-prefix length: the less-flat buffer may carry masked holes
-    n_sc = cand_surf_mask.shape[0]
-    surf_n = jnp.max(
-        jnp.where(cand_surf_mask, jnp.arange(1, n_sc + 1, dtype=jnp.int32), 0)
-    )
-
     if oc.distortion:
         sp = cfg.scan.scan_period
         s_e = jnp.clip((feats.sharp[:, 3] - jnp.floor(feats.sharp[:, 3])) / sp, 0.0, 1.0)
         s_s = jnp.clip((feats.flat[:, 3] - jnp.floor(feats.flat[:, 3])) / sp, 0.0, 1.0)
 
-    from vloam_tpu.ops.pallas_knn import knn_lanemin_pair
-
     pose = pose0
     for _ in range(oc.outer_iters):
-        # ONE fused kernel launch + epilogue for both association problems
-        # (sharp vs less-sharp AND flat vs less-flat); the CPU fallback
-        # inside is two plain knn calls.
+        # two association problems: sharp vs less-sharp, flat vs less-flat
         if oc.distortion:
             # TransformToStart with the per-point slerp fraction
             # (laser_odometry.cpp:285,390).
@@ -152,11 +142,8 @@ def solve_f2f(
         else:
             q_e = geo.pose_apply(pose, feats.sharp[:, :3])
             q_s = geo.pose_apply(pose, feats.flat[:, :3])
-        (d2e, idxe), (d2s, idxs) = knn_lanemin_pair(
-            q_e, cand_corner[:, :3], cand_corner_mask, oc.assoc_k,
-            q_s, cand_surf[:, :3], cand_surf_mask, oc.assoc_k_surf,
-            b_counts=(None, surf_n),
-        )
+        d2e, idxe = knn(q_e, cand_corner[:, :3], cand_corner_mask, oc.assoc_k)
+        d2s, idxs = knn(q_s, cand_surf[:, :3], cand_surf_mask, oc.assoc_k_surf)
         p_e, a_e, b_e, v_e = _edge_correspondences(
             d2e, idxe, feats.sharp, feats.sharp_mask, cand_corner, cfg
         )
@@ -166,9 +153,7 @@ def solve_f2f(
 
         if oc.distortion:
             # Per-point slerp inside the residuals (the factors' s parameter,
-            # lidarFactor.hpp:30-44).  Not the KITTI hot path, so the XLA
-            # jacfwd solver is fine; the fused Pallas kernel stays
-            # specialized to s = 1.
+            # lidarFactor.hpp:30-44).
             from vloam_tpu.ops.gauss_newton import solve_pose_gn
 
             def residuals(pp, p_e=p_e, a_e=a_e, b_e=b_e, v_e=v_e,
@@ -181,8 +166,6 @@ def solve_f2f(
                 residuals, pose, oc.inner_iters, oc.huber_delta, oc.lm_lambda
             )
         else:
-            # All inner iterations fuse into ONE Pallas launch on TPU
-            # (solve_pose_gn is the CPU fallback inside).
             pose = solve_pose_gn_lidar(
                 pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
                 oc.inner_iters, oc.huber_delta, oc.lm_lambda,

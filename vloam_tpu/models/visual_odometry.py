@@ -197,9 +197,7 @@ def vo_step(
 
     pose0 = geo.pose_identity() if (lo_prior is None or vc.reset_vo_to_identity) else lo_prior
 
-    # All inner GN iterations fuse into ONE Pallas launch on TPU
-    # (solve_pose_gn is the CPU fallback inside).
-    from vloam_tpu.ops.pallas_gn import solve_pose_gn_vo
+    from vloam_tpu.ops.vo_factors import solve_pose_gn_vo
 
     solved = solve_pose_gn_vo(
         pose0, X0, xb0, xb1, has_depth, no_depth,

@@ -3,10 +3,10 @@
 Parity target: ``DetectorType::AKAZE`` / ``DescriptorType::AKAZE``
 (image_util.cpp:98-102,306-310 via cv::AKAZE::create).
 
-TPU formulation:
+Formulation:
   * the nonlinear (Perona-Malik g2) scale space is evolved with a FIXED
     number of explicit diffusion steps per sublevel — each step is two
-    separable-shift gradient passes and one divergence pass, pure VPU
+    separable-shift gradient passes and one divergence pass, pure elementwise
     stencils, so the whole evolution is a static fused op chain (AKAZE's
     adaptive FED step schedules would make shapes/trip-counts dynamic);
   * the contrast factor k is a robust scale of the smoothed gradient
@@ -228,9 +228,7 @@ def describe(
         corner = jnp.stack(
             [jnp.clip(corner[:, 0], 0, W - PATCH), jnp.clip(corner[:, 1], 0, H - PATCH)], -1
         )
-        from vloam_tpu.ops.pallas_gather import gather_patches
-
-        p = gather_patches(subs[0], corner, PATCH)
+        p = _slice_patches(subs[0], corner, PATCH)
         sel = kp.octave == o
         patches = jnp.where(sel[:, None, None], p, patches)
         valid = jnp.where(sel, inside, valid)
@@ -246,10 +244,9 @@ def describe(
     sy = jnp.einsum("nyx,yx->n", gy, w)
     angle = jnp.arctan2(sy, sx)
     # ORB-style rotation quantization (12-degree bins): per-keypoint
-    # continuous-angle bilinear sampling needs ~7M serially-gathered
-    # elements/frame (~60 ms measured — TPU gathers run ~8.5 ns/element);
+    # continuous-angle bilinear sampling would gather ~7M elements/frame;
     # with the angle snapped to N_ROT pre-rotated sample grids the whole
-    # rotated (I, dx, dy) resampling becomes ONE bf16 MXU matmul against a
+    # rotated (I, dx, dy) resampling becomes ONE bf16 matmul against a
     # device-built sampling bank + a one-hot bin select.
     abin = jnp.mod(
         jnp.round(angle * (N_ROT / (2.0 * jnp.pi))).astype(jnp.int32), N_ROT

@@ -5,15 +5,15 @@ cv::BRISK::create), ``DescriptorType::BRISK`` (:296-299), and
 ``DescriptorType::FREAK`` (:311-315 via cv::xfeatures2d::FREAK) — all OpenCV
 factory calls in the reference.
 
-TPU formulation:
+Formulation:
   * detector: the BRISK/AGAST scale-space corner search becomes the FAST-9/16
-    response (image_ops.fast_response — 16 static rolls, one VPU pass) on a
+    response (image_ops.fast_response — 16 static rolls, one fused pass) on a
     static 4-octave pyramid with per-octave ``approx_max_k`` budgets;
   * descriptors: both BRISK's concentric pattern (60 points, 4 rings) and
     FREAK's retinal pattern (43 overlapping fields) reduce to the same
     machinery — slice one patch per keypoint at its octave, pre-blur the
     octave at 3 smoothing levels (coarse stand-in for per-point Gaussian
-    radii), resample all pattern points with ONE bf16 MXU matmul against a
+    radii), resample all pattern points with ONE bf16 matmul against a
     bank of pre-rotated bilinear taps (2pi/30 rotation bins — see
     _sample_pattern), compare fixed pair lists, pack bits into uint32 lanes;
   * orientation: BRISK's long-pair gradient estimate / FREAK's symmetric-pair
@@ -34,7 +34,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vloam_tpu.ops.image_ops import _sep_conv, _slice_patches, fast_response
+from vloam_tpu.ops.image_ops import _sep_conv, _slice_patches_multi, fast_response
 
 N_OCTAVES = 4
 PATCH = 32
@@ -223,11 +223,10 @@ def _sample_pattern(
     validity.  Patches are sliced at each keypoint's own octave, from the
     blur stack matching each pattern point's smoothing level.
 
-    Sampling is ONE bf16 MXU matmul of the (N, 3*P*P) patch stacks against a
-    bank of N_ROT pre-rotated bilinear-weight rows + a one-hot bin select —
-    the per-keypoint continuous-angle gathers this replaces ran ~8.5 ns per
-    serially-gathered element and dominated the 69/50 ms BRISK/FREAK frames
-    (rotation therefore quantizes to 2pi/30, the ORB trade).
+    Sampling is ONE bf16 matmul of the (N, 3*P*P) patch stacks against a
+    bank of N_ROT pre-rotated bilinear-weight rows + a one-hot bin select,
+    in place of per-keypoint continuous-angle gathers (rotation therefore
+    quantizes to 2pi/30, the ORB trade).
 
     Precision: the matmul casts patch intensities (0-255) and bilinear
     weights to bf16 (~8-bit mantissa) with f32 accumulation, adding ~±0.5
@@ -235,8 +234,7 @@ def _sample_pattern(
     snap.  Descriptor bits from near-tie comparisons (|Ia - Ib| < ~1 grey
     level) can flip vs an f32 sampling path; matching is Hamming-distance
     ranking, so a handful of unstable bits out of 512 does not change
-    nearest-neighbour assignment in practice, and the MXU only hits its
-    rated throughput on bf16 operands."""
+    nearest-neighbour assignment in practice."""
     N = kp.pts.shape[0]
     K = pat_xy.shape[0]
     n_rot = 1 if abin is None else N_ROT
@@ -278,10 +276,8 @@ def _sample_pattern(
         corner = jnp.stack(
             [jnp.clip(corner[:, 0], 0, W - PATCH), jnp.clip(corner[:, 1], 0, H - PATCH)], -1
         )
-        from vloam_tpu.ops.pallas_gather import gather_patches_stack
-
-        patches_all = gather_patches_stack(stack, corner, PATCH)  # (3, N, P, P)
-        flat3 = patches_all.transpose(1, 0, 2, 3).reshape(N, 3 * PATCH * PATCH)
+        patches_all = _slice_patches_multi(stack, corner, PATCH)  # (N, 3, P, P)
+        flat3 = patches_all.reshape(N, 3 * PATCH * PATCH)
         sampled = jax.lax.dot_general(
             flat3.astype(jnp.bfloat16), S.astype(jnp.bfloat16),
             (((1,), (1,)), ((), ())),

@@ -3,22 +3,17 @@
 The mapping correspondences only ever *use* neighbours closer than 1 m:
 every consumer gates on ``pointSearchSqDis[4] < 1.0`` (reference
 laser_mapping.cpp:557,642) and the insert-dedup radius is 0.2/0.4 m, so
-~99.9% of the candidate distances the brute-force MXU k-NN in ops/knn.py
+~99.9% of the candidate distances the brute-force k-NN in ops/knn.py
 evaluates are provably irrelevant.
 
-STATUS — measured on the target TPU and NOT wired into the mapping hot
-path: at production sizes (8192 queries x 49k candidates, 16k-bucket
-table, cap 16) brute knn runs 2.9 ms while ``cell_knn`` takes 8.7 ms and
-``append_cell_table`` 5.1 ms/frame.  XLA fuses the brute distance matmul
-with the streaming min-k reduction (the (M, N) matrix never round-trips
-HBM), so brute is MXU-bound and cheap, while the 27-bucket row gather here
-is exactly the irregular access pattern the TPU is worst at.  The op is
-retained (and unit-tested vs a NumPy oracle) for regimes where brute is
-genuinely infeasible — host-side queries against very large maps, or
-N >~ 10^6 candidates where O(M*N) loses to O(M*cap*27) even at the TPU's
-gather deficit.
+STATUS — NOT wired into the mapping hot path, and not measured on the GPU:
+the brute-force k-NN (with box pruning on the kernel path) serves the
+production sizes.  The op is retained (and unit-tested vs a NumPy oracle)
+for regimes where brute force is genuinely infeasible — host-side queries
+against very large maps, or N >~ 10^6 candidates where O(M*N) loses to
+O(M*cap*27).
 
-The method is the classic cell list, laid out for fixed TPU shapes:
+The method is the classic cell list, laid out for fixed shapes:
 candidates are scattered into an open-hashed table of spatial cells
 (edge = the 1 m gate radius), and each query examines only the 27 buckets
 of its 3x3x3 cell neighbourhood.  All points within the gate radius lie in
@@ -36,10 +31,9 @@ Hash collisions are benign by construction:
 Empty slots hold a far-away sentinel coordinate instead of a validity mask,
 so the query path needs no mask gather at all.
 
-Layout note: tables are stored 2-D as (table_size, cap*4) — XLA's TPU row
-gather is ~4x faster on a 2-D operand than on the logically identical
-(table_size, cap, 4) 3-D one (measured on v5e-class hardware); the kernel
-reshapes the gathered rows back to (..., cap, 4) for free.
+Layout note: tables are stored 2-D as (table_size, cap*4), so a bucket is
+one contiguous row gather; the kernel reshapes the gathered rows back to
+(..., cap, 4) for free.
 """
 
 from __future__ import annotations
@@ -143,7 +137,6 @@ def cell_knn(
     tbl: jax.Array,          # (table_size, cap*4)
     cell_size: float,
     k: int,
-    exact: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
     """k nearest within the 3x3x3 cell neighbourhood.
 
@@ -168,7 +161,7 @@ def cell_knn(
     diff = cand[..., :3] - query[:, None, None, :]
     d2 = jnp.sum(diff * diff, axis=-1)                      # (M, 27, cap)
     d2 = jnp.where(dup[:, :, None], _INF, d2).reshape(m, 27 * cap)
-    d2k, idx = _min_k(d2, k, exact)
+    d2k, idx = _min_k(d2, k)
     nbr = jnp.take_along_axis(
         cand.reshape(m, 27 * cap, 3 + 1)[..., :3], idx[..., None], axis=1
     )

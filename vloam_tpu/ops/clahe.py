@@ -7,7 +7,7 @@ tiles, build a 256-bin histogram per tile, clip at
 form per-tile CDF lookup tables, and map each pixel through the bilinear
 blend of its four surrounding tile LUTs.
 
-TPU formulation: the histograms are one-hot segment sums over tiles, the
+Formulation: the histograms are one-hot segment sums over tiles, the
 LUT application is a gather of 4 tile LUTs per pixel + bilinear blend — all
 batched, no data-dependent shapes.
 """

@@ -5,7 +5,7 @@ Pipeline: project the velodyne cloud through cam_T_velo, R_rect, P_rect
 per-keypoint depth queries with an inverse-distance-weighted 3-NN over the
 5x5 bucket neighbourhood, requiring >= 10 occupied neighbours (:381-487).
 
-TPU formulation: projection is one (N, 4) x (4, 3) matmul; bucketing is a
+Formulation: projection is one (N, 4) x (4, 3) matmul; bucketing is a
 segment mean (exact mean — the reference's incremental form at :292-299
 divides by the pre-increment count, i.e. forgets a bucket's first hit once
 a second arrives); queries are vmapped gathers over a static 5x5
@@ -91,9 +91,8 @@ def query_depth(
     oy, ox = jnp.meshgrid(dx, dx, indexing="ij")
     offs = jnp.stack([ox.reshape(-1), oy.reshape(-1)], axis=-1)   # (25, 2) (dx, dy)
 
-    # One plane-interleaved gather instead of four: TPU gathers are serial
-    # row loads, so cost scales with gathered rows, not row bytes — fetching
-    # (u, v, z, count) 4-vectors per neighbour quarters the gather time.
+    # One plane-interleaved gather instead of four: fetching (u, v, z,
+    # count) 4-vectors per neighbour quarters the number of gathered rows.
     planes = jnp.stack([buckets.u, buckets.v, buckets.z, buckets.count], axis=-1)
 
     def one(pt):

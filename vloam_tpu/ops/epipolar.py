@@ -1,17 +1,17 @@
-"""Essential-matrix RANSAC + relative-pose recovery, TPU-batched.
+"""Essential-matrix RANSAC + relative-pose recovery, batched.
 
 Parity target: ``VisualOdometry::solveRANSAC`` (reference
 visual_odometry.cpp:234-299), which calls OpenCV ``findEssentialMat``
 (RANSAC, prob 0.999, 1 px threshold) followed by ``recoverPose``.
 
-TPU-native formulation: instead of OpenCV's sequential hypothesise-and-test
+Batched formulation: instead of OpenCV's sequential hypothesise-and-test
 loop, ALL hypotheses are solved simultaneously —
 
   * one batched 8-point problem: (H, 8, 9) design matrices, batched 9x9
     eigendecomposition for the null vectors, batched 3x3 SVD to project
     onto the essential manifold;
   * one (H, N) Sampson-distance matrix pass to score every hypothesis
-    against every correspondence on the VPU;
+    against every correspondence in one elementwise pass;
   * a batched cheirality vote over the 4 (R, t) decompositions of the
     winning E.
 

@@ -3,9 +3,9 @@
 The reference's three solvers (VO: visual_odometry.cpp:482, LO:
 laser_odometry.cpp:509, MO: laser_mapping.cpp:717) are tiny nonlinear least
 squares: 6-7 DoF, 10^3 residuals, Huber(0.1), <=4 Ceres iterations, DENSE_QR.
-On TPU each iteration collapses to: one vmapped residual+Jacobian evaluation,
-one (6 x NR) x (NR x 6) matmul for J^T J, and a 6x6 dense solve — all fused by
-XLA into a handful of kernels.  No factor graphs, no per-residual heap
+Each iteration collapses to: one vmapped residual+Jacobian evaluation, one
+(6 x NR) x (NR x 6) matmul for J^T J, and a 6x6 dense solve — all fused by XLA
+into a handful of kernels.  No factor graphs, no per-residual heap
 allocation.
 
 Robustness: Huber weighting per residual *block* (Ceres semantics — the loss
@@ -15,7 +15,7 @@ as IRLS weights sqrt(rho'(s)).
 The normal-equation accumulation optionally psums over a named mesh axis —
 this is the hook the distributed mapping backend uses: residual blocks live
 on different devices, J^T J / J^T r are 36 + 6 floats, so the collective is
-tiny and rides ICI.
+tiny.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def normal_equations(
     """Weighted J^T J and J^T r, optionally psum-reduced over a mesh axis."""
     Jw = J * w[:, None]
     rw = r * w
-    jtj = Jw.T @ Jw                       # (D, D) MXU
+    jtj = Jw.T @ Jw                       # (D, D)
     jtr = Jw.T @ rw                       # (D,)
     if axis_name is not None:
         jtj = jax.lax.psum(jtj, axis_name)
@@ -111,4 +111,5 @@ def solve_pose_gn(
     # per-iteration condition/state overhead is a measurable slice of the
     # 6-26 iterations each frame runs; unrolling also lets XLA fuse across
     # iteration boundaries.
-    return jax.lax.fori_loop(0, iters, gn_iter, pose0, unroll=True)
+    with jax.named_scope("gauss_newton"):
+        return jax.lax.fori_loop(0, iters, gn_iter, pose0, unroll=True)

@@ -1,8 +1,8 @@
 """2D feature frontend — reference: image_util.cpp (Shi-Tomasi + pyramidal LK).
 
-TPU formulation:
+Formulation:
   * Shi-Tomasi response is the min eigenvalue of the 5x5 structure tensor —
-    separable box/Sobel convolutions that XLA fuses and runs on the MXU/VPU
+    separable box/Sobel convolutions that XLA fuses into elementwise passes
     (reference: cv::goodFeaturesToTrack, image_util.cpp:16-58).
   * Corner selection = local-max suppression (the minDistance=7.5 greedy of
     OpenCV becomes a 7x7 window max) + quality gate + global top-k into a
@@ -28,9 +28,9 @@ from vloam_tpu.config import VisualConfig
 def _conv1d_shift(img: jax.Array, k: jax.Array, axis: int) -> jax.Array:
     """1D SAME convolution along ``axis`` as a shift-and-add.
 
-    A (1,1,H,W) conv_general_dilated is pathologically slow on TPU (no channel
-    parallelism for the MXU conv path); k-1 padded slices + fused multiply-adds
-    run as ONE VPU pass over the image instead.
+    A single-channel (1,1,H,W) conv_general_dilated gives a convolution
+    library nothing to parallelise over channels; k-1 padded slices + fused
+    multiply-adds run as ONE elementwise pass over the image instead.
     """
     r = len(k) // 2
     pad = [(0, 0), (0, 0)]
@@ -83,7 +83,7 @@ def fast_response(img: jax.Array, threshold: float = 20.0) -> jax.Array:
     circle are all brighter than center+t or all darker than center-t; the
     response is the summed threshold excess over the circle (the standard
     non-max-suppression score).  Formulated as 16 static rolls + a circular
-    9-window AND — one fused VPU pass, no gathers.
+    9-window AND — one fused elementwise pass, no gathers.
     """
     # radius-3 Bresenham circle offsets (dy, dx), OpenCV ordering
     offs = [(-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
@@ -128,7 +128,7 @@ def detect_corners(
     H, W = resp.shape
 
     # local-max suppression over a (2r+1)^2 window, r from minDistance;
-    # separable shift-max (two fused VPU passes) instead of reduce_window
+    # separable shift-max (two fused elementwise passes) instead of reduce_window
     r = max(int(cfg.min_distance // 2), 1)
 
     def _shift_max(x, axis):
@@ -155,7 +155,6 @@ def detect_corners(
 
     neg_big = jnp.float32(-3.4e38)
     score = jnp.where(is_peak, resp, neg_big).reshape(-1)
-    # approx_max_k hits the TPU PartialReduce unit — top_k would full-sort 468k
     top, idx = jax.lax.approx_max_k(score[None, :], cfg.max_corners, recall_target=0.95)
     top, idx = top[0], idx[0]
     pts = jnp.stack([(idx % W).astype(jnp.float32), (idx // W).astype(jnp.float32)], axis=-1)
@@ -223,9 +222,8 @@ def _tent_weights(x: jax.Array, P: int) -> jax.Array:
     """Bilinear (tent) interpolation weights onto an integer grid of size P.
 
     x: (..., w) float coords in patch space -> (..., w, P) weights with two
-    non-zeros per row.  Sampling then becomes a dense matmul — this is what
-    keeps the KLT inner loop on the MXU instead of issuing per-pixel gathers
-    (which are serial scalar loads on TPU).
+    non-zeros per row.  Sampling then becomes a dense matmul — this keeps
+    the KLT inner loop in batched matmuls instead of per-pixel gathers.
     """
     xc = jnp.clip(x, 0.0, P - 1.000001)
     grid = jnp.arange(P, dtype=jnp.float32)
@@ -234,13 +232,13 @@ def _tent_weights(x: jax.Array, P: int) -> jax.Array:
 
 def _sample_windows(patch: jax.Array, wy: jax.Array, wx: jax.Array) -> jax.Array:
     """(N,P,P) patches x (N,w,P) row/col weights -> (N,w,w) windows via two
-    batched matmuls (MXU).
+    batched matmuls.
 
-    Inputs run in bf16 with f32 accumulation: a single-pass bf16 MXU matmul
-    is ~2.3x faster than the f32 multi-pass decomposition, and the rounding
-    (2^-8 relative on 0..255 intensities and 0..1 tent weights, ~0.5 grey
-    level) is below sensor noise — measured KLT flow shift < 0.01 px, unlike
-    the k-NN distance matmuls where bf16 is catastrophic (PERF.md)."""
+    Inputs run in bf16 with f32 accumulation (tensor-core rate rather than
+    the engine-wide "highest" f32 default): the rounding (2^-8 relative on
+    0..255 intensities and 0..1 tent weights, ~0.5 grey level) is below
+    sensor noise — KLT flow shift < 0.01 px, unlike the k-NN distance
+    matmuls where bf16 is catastrophic (ops/knn.pairwise_sqdist)."""
     tmp = jnp.einsum(
         "nwp,npq->nwq",
         wy.astype(jnp.bfloat16),
@@ -260,7 +258,8 @@ def _slice_patches(img: jax.Array, corner: jax.Array, P: int) -> jax.Array:
     def one(c):
         return jax.lax.dynamic_slice(img, (c[1], c[0]), (P, P))
 
-    return jax.vmap(one)(corner)
+    with jax.named_scope("patch_gather"):
+        return jax.vmap(one)(corner)
 
 
 def _slice_patches_multi(imgs: jax.Array, corner: jax.Array, P: int) -> jax.Array:
@@ -270,12 +269,13 @@ def _slice_patches_multi(imgs: jax.Array, corner: jax.Array, P: int) -> jax.Arra
     def one(c):
         return jax.lax.dynamic_slice(imgs, (0, c[1], c[0]), (C, P, P))
 
-    return jax.vmap(one)(corner)
+    with jax.named_scope("patch_gather"):
+        return jax.vmap(one)(corner)
 
 
 def _patch_sobel(patch: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Same separable smooth/diff taps as sobel_gradients, applied to a
-    (N, P, P) patch stack — pure VPU shift-adds, no extra HBM traffic.
+    (N, P, P) patch stack — pure shift-adds, no extra device-memory traffic.
     Patch-edge pixels see wrapped taps, but the tracking window stays
     >= klt_patch_slack px inside the patch, so they are never sampled."""
     def conv(x, k, axis):
@@ -366,13 +366,9 @@ def _lk_level(
     # flows far beyond the slack stay inside the slice
     corner_c = clip_corner(jnp.round(p_lvl + flow).astype(jnp.int32) - ph)
 
-    # ONE vmapped kernel for both patch slices (gather launches are the
-    # dominant cost of the whole tracker — batch them, and keep the DMA
-    # volume minimal: template gradients are computed IN-PATCH below
-    # instead of slicing from full-image gradient planes)
-    from vloam_tpu.ops.pallas_gather import gather_patches_pair
-
-    Tp, Cp = gather_patches_pair(pimg, cimg, corner, corner_c, P)
+    # Template gradients are computed IN-PATCH below instead of slicing from
+    # full-image gradient planes, so two patch gathers are all a level reads.
+    Tp, Cp = _slice_patches(pimg, corner, P), _slice_patches(cimg, corner_c, P)
     Gxp, Gyp = _patch_sobel(Tp)
 
     # template window (fixed per level): patch-space coords of the window taps
@@ -448,9 +444,7 @@ def _lk_level_fb(
     corner = clip_corner(jnp.round(p_lvl).astype(jnp.int32) - ph)
     corner_c = clip_corner(jnp.round(p_lvl + flow).astype(jnp.int32) - ph)
 
-    from vloam_tpu.ops.pallas_gather import gather_patches_pair
-
-    Tp, Cp = gather_patches_pair(pimg, cimg, corner, corner_c, P)
+    Tp, Cp = _slice_patches(pimg, corner, P), _slice_patches(cimg, corner_c, P)
     Gxp, Gyp = _patch_sobel(Tp)
 
     # ---- forward (identical to _lk_level) ----------------------------------
@@ -528,7 +522,7 @@ def lk_track(
     slack and the coarse levels — patch gathers, pyramid construction and
     all — are dead weight.  Both branches compile once; only one executes.
 
-    TPU formulation: per (feature, level) a single contiguous (P, P) patch is
+    Formulation: per (feature, level) a single contiguous (P, P) patch is
     sliced from each image; every window resample inside the iteration loop
     is two batched interpolation matmuls over the patch (no gathers).
     """

@@ -1,83 +1,124 @@
-"""Nearest-neighbour search as MXU matmuls — the kd-tree replacement.
+"""Brute-force nearest-neighbour search — the kd-tree replacement.
 
 The reference builds 4 PCL KdTreeFLANN trees per frame (2 in LaserOdometry,
-2 in LaserMapping) and queries them point-by-point.  On TPU the right
-formulation at these sizes (10^3 queries x 10^4..10^5 candidates) is a
-brute-force blocked distance matrix: ||q - c||^2 = ||q||^2 + ||c||^2 - 2 q.c^T,
-where the q.c^T term is a single MXU matmul, with a running top-k merge over
-candidate blocks so the full (M, N) matrix never materialises in HBM.
+2 in LaserMapping) and queries them point-by-point.  At these sizes (10^3
+queries x 10^4..10^5 candidates) a brute-force distance sweep is the better
+fit for an accelerator.  Two implementations with one exact contract:
 
-Masked candidates/queries get +inf distance.  All shapes static.
+  * the plain path (any backend): a blocked distance matrix
+    ||q||^2 + ||c||^2 - 2 q.c^T and a row-wise ``lax.top_k``, with a running
+    merge over candidate blocks wider than ``block``;
+  * on the GPU, the fused Pallas kernel in ops/pallas_knn.py, which never
+    writes the distance matrix to device memory.
+
+``_mode`` is the one place that chooses between them.  Masked
+candidates get distance 3.4e38.  All shapes static.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
 
 _INF = jnp.float32(3.4e38)  # large finite sentinel (inf-safe for top_k)
 
+_MODES = ("plain", "kernel", "interpret")
+_MODE: str | None = None      # None: decide by backend (see _mode)
+
+
+@contextlib.contextmanager
+def knn_mode(mode: str):
+    """Force one implementation for everything traced inside the block:
+    "plain", "kernel" (the fused GPU kernel) or "interpret" (the same kernel
+    in the Pallas interpreter, for CPU tests).  Used to time the kernel
+    against the plain path in one process."""
+    global _MODE
+    if mode not in _MODES:
+        raise ValueError(f"knn_mode: {mode!r} not in {_MODES}")
+    prev, _MODE = _MODE, mode
+    try:
+        yield
+    finally:
+        _MODE = prev
+
+
+def _mode() -> str:
+    """The fused k-NN kernel runs on the GPU; other backends take the plain
+    path.  ``knn_mode`` takes precedence."""
+    if _MODE is not None:
+        return _MODE
+    return "kernel" if jax.default_backend() == "gpu" else "plain"
+
+
+def _knn_scope(fn):
+    """Run ``fn`` under the "knn" named scope (the trace reduction in
+    tools/profile_trace.py reads it)."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.named_scope("knn"):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def _fused(query, cand, cand_mask, k, query_count, prune_radius):
+    from vloam_tpu.ops.pallas_knn import knn_fused
+
+    return knn_fused(query, cand, cand_mask, k, query_count=query_count,
+                     prune_radius=prune_radius, interpret=_mode() == "interpret")
+
 
 def pairwise_sqdist(query: jax.Array, cand: jax.Array) -> jax.Array:
     """(M,3) x (N,3) -> (M,N) squared distances via one matmul.
 
-    The cross term MUST run at f32 MXU precision: the TPU default (bf16
-    operands) loses ~|coord|^2 * 2^-8 per product — tens of m^2 at KITTI
-    coordinate scales, which silently corrupts every neighbour ranking
-    (measured: 67 m^2 max error, 0.81 recall@5 at ±60 m coords)."""
+    The cross term MUST run at full f32 precision: bf16 operands lose
+    ~|coord|^2 * 2^-8 per product (TF32 ~|coord|^2 * 2^-11) — square metres
+    at KITTI coordinate scales, which silently corrupts every neighbour
+    ranking (67 m^2 max error, 0.81 recall@5 at +-60 m coords with bf16)."""
     q2 = jnp.sum(query * query, axis=-1, keepdims=True)
     c2 = jnp.sum(cand * cand, axis=-1)[None, :]
     cross = jnp.matmul(query, cand.T, precision=jax.lax.Precision.HIGHEST)
     return jnp.maximum(q2 + c2 - 2.0 * cross, 0.0)
 
 
-def _min_k(d2: jax.Array, k: int, exact: bool) -> tuple[jax.Array, jax.Array]:
-    """Row-wise smallest-k.  On TPU ``approx_min_k`` hits the dedicated
-    PartialReduce hardware path — an order of magnitude faster than the
-    full-sort lowering of top_k for wide rows.  On CPU the approx path has no
-    hardware backing, so exact top_k is both faster and deterministic."""
-    if exact or jax.default_backend() == "cpu":
-        neg, idx = jax.lax.top_k(-d2, k)
-        return -neg, idx
-    return jax.lax.approx_min_k(d2, k, recall_target=0.95)
+def _min_k(d2: jax.Array, k: int) -> tuple[jax.Array, jax.Array]:
+    """Row-wise smallest-k, exact."""
+    neg, idx = jax.lax.top_k(-d2, k)
+    return -neg, idx
 
 
+@_knn_scope
 def knn(
     query: jax.Array,       # (M, 3)
     cand: jax.Array,        # (N, 3)
     cand_mask: jax.Array,   # (N,) bool
     k: int,
     block: int = 32768,
-    exact: bool = False,
-    cand_count: jax.Array | None = None,
     query_count: jax.Array | None = None,
+    prune_radius: float | None = None,
 ) -> tuple[jax.Array, jax.Array]:
-    """k nearest candidates per query: returns (sqdist (M,k), idx (M,k)).
+    """Exact k nearest candidates per query: returns (sqdist (M,k), idx (M,k)).
 
-    Invalid candidates never win (distance _INF).  If N <= block a single
-    fused matmul+min_k is used, else a lax.scan with a running merge.
+    Invalid candidates never win (distance _INF).  The plain path uses one
+    matmul + top-k if N <= block, else a lax.scan with a running merge.
 
-    ``cand_count`` / ``query_count``: optional dynamic valid-prefix lengths
-    (prefix-compacted buffers only) — on TPU the pallas kernel skips tiles
-    past them, so time scales with occupancy rather than padded capacity.
-    Queries past ``query_count`` return d2 = NaN.
+    ``query_count`` (dynamic valid-prefix length of ``query``) and
+    ``prune_radius`` let the kernel skip work; neighbours beyond the radius
+    and queries past the count may then come back as _INF.  Consumers must
+    gate at d2 < prune_radius^2, which makes both paths agree.
     """
+    if _mode() != "plain":
+        return _fused(query, cand, cand_mask, k, query_count, prune_radius)
+
     m = query.shape[0]
     n = cand.shape[0]
-
-    # TPU: the fused pallas lane-min kernel keeps distance tiles in VMEM
-    # (no (M, N) HBM round trip) — ~1.8x the f32 XLA path at mapping sizes
-    # with the same approximate-recall contract (see ops/pallas_knn.py).
-    if (not exact and jax.default_backend() not in ("cpu", "gpu")
-            and n <= 65536 and k <= 128):
-        from vloam_tpu.ops.pallas_knn import knn_lanemin
-        return knn_lanemin(query, cand, cand_mask, k,
-                           cand_count=cand_count, query_count=query_count)
-
     if n <= block:
         d2 = pairwise_sqdist(query, cand)
         d2 = jnp.where(cand_mask[None, :], d2, _INF)
-        return _min_k(d2, k, exact)
+        return _min_k(d2, k)
 
     if n % block != 0:
         pad = block - n % block
@@ -93,7 +134,7 @@ def knn(
         cb, mb, b = inp
         d2 = pairwise_sqdist(query, cb)
         d2 = jnp.where(mb[None, :], d2, _INF)
-        bd, bi = _min_k(d2, k, exact)
+        bd, bi = _min_k(d2, k)
         cat_d = jnp.concatenate([best_d, bd], axis=1)
         cat_i = jnp.concatenate([best_i, b * block + bi], axis=1)
         neg, pos = jax.lax.top_k(-cat_d, k)     # 2k wide: cheap either way
@@ -106,21 +147,19 @@ def knn(
     return best_d, best_i
 
 
+@_knn_scope
 def nn1(
     query: jax.Array, cand: jax.Array, cand_mask: jax.Array, block: int = 32768,
-    cand_count: jax.Array | None = None, query_count: jax.Array | None = None,
 ) -> tuple[jax.Array, jax.Array]:
     """Single nearest neighbour: (sqdist (M,), idx (M,)).
 
-    k=1 needs no top-k machinery at all — a fused min/argmin reduction over
-    the (blocked) distance matrix is ~10x cheaper than a top_k full sort.
+    k=1 needs no top-k machinery: the plain path is a fused min/argmin
+    reduction over the (blocked) distance matrix.
     """
-    m, n = query.shape[0], cand.shape[0]
-    if jax.default_backend() not in ("cpu", "gpu") and n <= 65536:
-        from vloam_tpu.ops.pallas_knn import knn_lanemin
-        d2, idx = knn_lanemin(query, cand, cand_mask, 1,
-                              cand_count=cand_count, query_count=query_count)
+    if _mode() != "plain":
+        d2, idx = _fused(query, cand, cand_mask, 1, None, None)
         return d2[:, 0], idx[:, 0]
+    m, n = query.shape[0], cand.shape[0]
     if n <= block:
         d2 = pairwise_sqdist(query, cand)
         d2 = jnp.where(cand_mask[None, :], d2, _INF)
@@ -206,8 +245,8 @@ def morton_sort(
     """Sort a prefix-compacted point buffer into Morton order.
 
     Consecutive rows become spatially adjacent, which is what makes the
-    AABB tile pruning in pallas_knn effective (a TM/TN-row block covers a
-    compact region instead of a full ring sweep).  Invalid rows sort to the
+    AABB tile pruning in ops/pallas_knn effective (a query block or
+    candidate tile covers a compact region instead of a full ring sweep).  Invalid rows sort to the
     tail, so a prefix mask stays a prefix mask.  Row order is irrelevant to
     every consumer of the feature stacks and submap caches (fits, GN
     residuals, scatter inserts are order-free)."""

@@ -100,3 +100,28 @@ def distance_residual(pose: jax.Array, p: jax.Array, closest: jax.Array) -> jax.
     the active LO/MO paths there but part of the solver-layer inventory.
     """
     return geo.pose_apply(pose, p) - closest
+
+
+def solve_pose_gn_lidar(
+    pose0: jax.Array,                  # (7,) [qx qy qz qw tx ty tz]
+    edge: tuple,                       # (p (Be,3), a (Be,3), b (Be,3), valid (Be,))
+    plane: tuple,                      # (p (Bs,3), n (Bs,3), d (Bs,), valid (Bs,))
+    iters: int,
+    huber_delta: float,
+    lm_lambda: float,
+) -> jax.Array:
+    """GN solve over the two reference lidar factor types (edge + plane
+    blocks), as LO and MO run it: ops/gauss_newton.solve_pose_gn with
+    jacfwd Jacobians."""
+    from vloam_tpu.ops.gauss_newton import solve_pose_gn
+
+    ep, ea, eb, ev = edge
+    pp, pn, pd, pv = plane
+
+    def residuals(p):
+        return (
+            (edge_residual(p, ep, ea, eb), ev),
+            (plane_residual(p, pp, pn, pd), pv),
+        )
+
+    return solve_pose_gn(residuals, pose0, iters, huber_delta, lm_lambda)

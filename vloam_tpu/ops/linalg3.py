@@ -1,7 +1,7 @@
 """Closed-form batched 3x3 symmetric linear algebra.
 
-jnp.linalg.eigh on big batches of tiny matrices maps poorly onto TPU (it
-lowers to a loop-heavy custom call); the analytic trigonometric eigensolver
+jnp.linalg.eigh on big batches of tiny matrices lowers to a loop-heavy
+solver call; the analytic trigonometric eigensolver
 is a few dozen vectorised flops per matrix and fuses into the surrounding
 kernel.  Used by the mapping line/plane fits (reference: Eigen
 SelfAdjointEigenSolver at laser_mapping.cpp:583 and colPivHouseholderQr at
@@ -22,10 +22,8 @@ def eigh3x3_sym(a, b, c, d, e, f):
 
     Returns ((e1, e2, e3) ascending, ((v1x, v1y, v1z), (v2x, ...), (v3x, ...))).
 
-    Structure-of-arrays on purpose: (..., 3)/(..., 3, 3) shapes put the
-    vector axis in the TPU lane dimension at 3/128 utilisation, and the
-    fused cross-product chain over a (4096,) mapping batch measured ~1 ms of
-    the coupled step.  Componentwise, every op is a full-width (...,)
+    Structure-of-arrays on purpose: (..., 3)/(..., 3, 3) shapes put a
+    length-3 axis innermost; componentwise, every op is a full-width (...,)
     elementwise vector op.
     """
     tr = a + b + c
@@ -123,9 +121,8 @@ def eigh3x3(A: jax.Array) -> tuple[jax.Array, jax.Array]:
 def solve_spd_small(A: jax.Array, b: jax.Array) -> jax.Array:
     """Solve A x = b for a small SPD matrix (e.g. the 6x6 GN normal matrix)
     with an unrolled Cholesky — pure scalar jnp ops that XLA fuses into the
-    surrounding kernel.  jnp.linalg.solve lowers to an LU custom call that
-    costs milliseconds per invocation on TPU for tiny systems; this is
-    effectively free."""
+    surrounding kernel, where jnp.linalg.solve would be a separate LU solver
+    call per tiny system."""
     n = A.shape[-1]
     L = [[None] * n for _ in range(n)]
     for j in range(n):
@@ -160,7 +157,7 @@ def solve3x3_sym(a, b, c, d, e, f, bx, by, bz):
     """Cramer's-rule solve for symmetric [[a,d,f],[d,b,e],[f,e,c]] x = rhs,
     all inputs component batch arrays.  Returns (x0, x1, x2).
 
-    Structure-of-arrays for the same lane-utilisation reason as
+    Structure-of-arrays for the same reason as
     ``eigh3x3_sym`` (the mapping plane fit calls this on (M,) batches)."""
     m00 = b * c - e * e
     m01 = d * c - e * f

@@ -2,14 +2,14 @@
 frontend (image_util.cpp: descriptor_type=ORB :280-339, BF/KNN matching with
 0.8 ratio test :347-438; selected by optical_flow_match=false).
 
-TPU formulation:
+Formulation:
   * orientation = intensity centroid over a 31x31 patch (the ORB moment
     test), patches sliced once per keypoint;
   * descriptor = 256 smoothed-point comparisons on a fixed random pattern
     rotated by the orientation, sampled with the same interpolation-matmul
     machinery as the KLT windows, packed into 8 uint32 lanes;
   * matching = one XOR + popcount distance matrix (N0, N1, 8 words) on the
-    VPU, 2-NN + Lowe ratio entirely vectorised.
+    device, 2-NN + Lowe ratio entirely vectorised.
 
 The sampling pattern is a seeded Gaussian BRIEF pattern (self-contained;
 OpenCV's learned bit_pattern_31 is an external artifact, and the ratio-test
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from vloam_tpu.config import VisualConfig
-from vloam_tpu.ops.image_ops import _sep_conv
+from vloam_tpu.ops.image_ops import _sep_conv, _slice_patches
 
 PATCH = 32          # descriptor patch (covers the 31x31 ORB window)
 N_BITS = 256
@@ -97,9 +97,7 @@ def orb_descriptors(
     corner = jnp.stack(
         [jnp.clip(corner[:, 0], 0, W - PATCH), jnp.clip(corner[:, 1], 0, H - PATCH)], axis=-1
     )
-    from vloam_tpu.ops.pallas_gather import gather_patches
-
-    patches = gather_patches(smooth, corner, PATCH)          # (N, 32, 32)
+    patches = _slice_patches(smooth, corner, PATCH)          # (N, 32, 32)
 
     # orientation: intensity centroid moments over the patch, quantised to
     # the ORB paper's 30 pre-rotated patterns (Rublee et al. 2011 §4.1)
@@ -122,39 +120,12 @@ def orb_descriptors(
     return desc, mask & inside
 
 
-def _descriptor_bits(
-    flat: jax.Array, abin: jax.Array, use_matmul: bool | None = None
-) -> jax.Array:
-    """Pattern comparisons for pre-sliced flattened patches: (N, 256) bits.
-
-    Two numerically identical formulations (exact f32, same integer taps);
-    ``use_matmul=None`` picks by backend."""
-    bank1 = jnp.asarray(_BANK1)
-    bank2 = jnp.asarray(_BANK2)
-    if use_matmul is None:
-        use_matmul = jax.default_backend() not in ("cpu", "gpu")
-    if not use_matmul:
-        # gather path: per-keypoint tap lookup of its angle bin's pattern
-        idx1 = jnp.take(bank1, abin, axis=0)                 # (N, 256)
-        idx2 = jnp.take(bank2, abin, axis=0)
-        bits = jnp.take_along_axis(flat, idx1, axis=1) < jnp.take_along_axis(flat, idx2, axis=1)
-    else:
-        # MXU path: the two serial 262k-element tap gathers were ~5 ms on
-        # TPU.  All 30 patterns' comparisons become ONE matmul against a
-        # (30*256, 1024) +-1 difference matrix (diff = s2 - s1 per bit),
-        # then each keypoint row-selects its angle bin — identical bits to
-        # the gather path (exact f32, same integer taps).
-        pix = jnp.arange(PATCH * PATCH, dtype=jnp.int32)
-        d2_oh = (pix[None, :] == bank2.reshape(-1)[:, None]).astype(jnp.float32)
-        d1_oh = (pix[None, :] == bank1.reshape(-1)[:, None]).astype(jnp.float32)
-        D = d2_oh - d1_oh                                    # (30*256, 1024)
-        diff_all = jax.lax.dot_general(
-            flat, D, (((1,), (1,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(-1, N_ANGLES, N_BITS)
-        diff = jnp.take_along_axis(diff_all, abin[:, None, None], axis=1)[:, 0]
-        bits = diff > 0                                      # (N, 256)
-    return bits
+def _descriptor_bits(flat: jax.Array, abin: jax.Array) -> jax.Array:
+    """Pattern comparisons for pre-sliced flattened patches: (N, 256) bits,
+    by a per-keypoint tap lookup of its angle bin's pattern."""
+    idx1 = jnp.take(jnp.asarray(_BANK1), abin, axis=0)       # (N, 256)
+    idx2 = jnp.take(jnp.asarray(_BANK2), abin, axis=0)
+    return jnp.take_along_axis(flat, idx1, axis=1) < jnp.take_along_axis(flat, idx2, axis=1)
 
 
 def _popcount32(x: jax.Array) -> jax.Array:
@@ -208,7 +179,7 @@ def match_descriptors_approx(
     OpenCV FLANN uses LSH tables for binary descriptors,
     image_util.cpp:366-378).
 
-    TPU-native analogue: Hamming distance on a seeded subset of
+    Fixed-shape analogue: Hamming distance on a seeded subset of
     ``n_probe_words`` 32-bit words prefilters ``rerank`` candidates per
     query (bit-sampling LSH), exact full-width Hamming re-ranks only those.
     All fixed-shape; useful when descriptor width dominates (512-bit BRISK/

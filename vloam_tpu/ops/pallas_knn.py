@@ -1,432 +1,218 @@
-"""Fused brute-force k-NN Pallas kernel — streaming lane-min over VMEM tiles.
+"""Fused brute-force k-NN kernel for the GPU (Pallas, Triton route).
 
-The XLA formulation in ops/knn.py (distance matmul -> ``approx_min_k``)
-materialises the (M, N) squared-distance matrix in HBM between the two ops:
-for the mapping correspondence pass (8192 x 49152 f32) that is a ~3.2 GB
-round trip per call — pure bandwidth, zero arithmetic intensity (measured
-7.3 ms at correct f32 precision).  This kernel keeps every distance tile
-in VMEM and reduces it on the fly:
+The plain formulation in ops/knn.py writes the (M, N) squared-distance
+matrix to device memory and reads it back for a top-k: for the mapping surf
+association (8192 stacked queries against a 49152-row submap) that is
+gigabytes of traffic per frame for ~9 flops per pair.  This kernel keeps
+every distance tile in registers and reduces it on the spot.
 
-  * d2 is computed in DIFFERENCE form, (qx-cx)^2 + ..., as pure VPU
-    broadcasts of a (TM, 1) query column against (1, TN) candidate rows.
-    This is exact f32 (no |q|^2 - 2 q.c cancellation) and measured ~2.5x
-    faster than the MXU matmul form, whose f32 path costs a 6-pass bf16
-    decomposition (Mosaic supports only DEFAULT/bf16 and HIGHEST dot
-    precision, and bf16 distances are off by ~60 m^2 at metric scales).
-  * Each candidate's identity is packed into the low 9 bits of its d2
-    float's mantissa (idx // 128 fits 9 bits for N <= 65536); positive f32
-    bit patterns order like the floats, so an int32 ``min`` keeps the
-    nearest candidate AND its identity in one VPU pass.
-  * Per query row, a running (128,)-lane minimum accumulates across
-    candidate tiles in the revisited output block (one int32 key per lane
-    class idx % 128); the lane index supplies the low 7 bits of the winner.
-  * A tiny XLA epilogue top-k's the (M, 128) keys into (d2, idx) pairs.
+Layout: the grid runs over (query block, candidate split).  Each program
+loads its BM queries once, then walks its share of the candidate tiles that
+survive pruning (tile ids computed in XLA beforehand, ``_tile_lists``) in a
+loop inside the block, so nothing is carried between programs.  The splits
+of one query block are merged by a (M, SPLITS * KP) top-k in XLA.
 
-Approximation contract (matches the ``approx_min_k`` path it replaces):
-two true neighbours sharing a lane class (idx ≡ mod 128) return only the
-nearer one.  Map/scan buffers are spatially sorted (sorted-scatter hints),
-so true 5-NN are near-consecutive indices and land in distinct lanes;
-random-data recall is ~98% for k=5, and every consumer
-(fit_corner_lines / fit_surf_planes, laser_mapping.cpp:545-699 semantics)
-gates on d2 anyway.  Packing clears 9 mantissa bits: d2 is reported with
-relative error < 2^-14 (floor-rounded), immaterial against the 1 m gates.
+Per tile:
+  * d2 in difference form, (qx-cx)^2 + (qy-cy)^2 + (qz-cz)^2, on the CUDA
+    cores in f32.  No matmul: TF32 or bf16 cross terms corrupt neighbour
+    rankings at metric coordinate scales (see ops/knn.pairwise_sqdist).
+  * entries not below the row's current k-th best are dropped, then up to k
+    rounds of masked row-min move the tile's winners into the carried best
+    list (replace-the-worst).  The rounds stop as soon as no row of the
+    block has an entry left below its k-th best, so once the best lists are
+    full most tiles cost one compare pass.
 
-Shapes are padded to (TM=256, TN=2048) tiles; masked candidates get
-sentinel coordinates (1e6) whose d2 ~ 3e12 never wins a gate.
+Contract: EXACT k-NN over the valid candidates (no index-packing
+approximation): the k smallest difference-form d2, ascending, with their
+indices.  Rows with fewer than k valid candidates (or whose neighbours all
+lie beyond ``prune_radius``) report d2 = 3.4e38, the plain path's sentinel.
+With ``prune_radius`` r, a (query block, candidate tile) pair is skipped
+when their axis-aligned boxes are farther apart than r, so neighbours
+beyond r may be reported as 3.4e38; every neighbour within r is still
+found.  Consumers that gate at d2 < r^2 see the unpruned result.  Pruning
+pays when queries and candidates are Morton-sorted (ops/knn.morton_sort).
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-TM = 256          # queries per tile
-TN = 2048         # candidates per tile
-_LANES = 128
-_GBITS = 9        # bits for the 128-group id -> N <= 512 * 128
-_GMASK = (1 << _GBITS) - 1
-SENTINEL = 1.0e6   # empty-candidate coordinate
-
-
-def _knn_kernel(nt_ref, q_ref, ct_ref, out_ref):
-    i, j = pl.program_id(0), pl.program_id(1)
-    active = (i < nt_ref[0]) & (j < nt_ref[1])
-
-    # Revisited output block: seed every lane with NaN-bit keys at j == 0 so
-    # query tiles past the valid count (whose compute is skipped entirely)
-    # still decode to d2 = NaN, which every downstream gate rejects.
-    @pl.when(j == 0)
-    def _():
-        out_ref[:] = jnp.full_like(out_ref, jnp.iinfo(jnp.int32).max)
-
-    @pl.when(active)
-    def _():
-        qx, qy, qz = q_ref[:, 0:1], q_ref[:, 1:2], q_ref[:, 2:3]     # (TM, 1)
-        cx, cy, cz = ct_ref[0:1, :], ct_ref[1:2, :], ct_ref[2:3, :]  # (1, TN)
-        dx, dy, dz = qx - cx, qy - cy, qz - cz
-        d2 = dx * dx + dy * dy + dz * dz                    # (TM, TN), exact f32
-        bits = jax.lax.bitcast_convert_type(d2, jnp.int32)  # >=0: int-ordered
-        n_groups = TN // _LANES
-        acc = None
-        for r in range(n_groups):
-            g = j * n_groups + r
-            key = (bits[:, r * _LANES:(r + 1) * _LANES] & ~_GMASK) | g
-            acc = key if acc is None else jnp.minimum(acc, key)
-        out_ref[:] = jnp.minimum(out_ref[:], acc)
+BM = 32          # queries per program
+BN = 128         # candidates per tile
+SPLITS = 4       # candidate splits per query block (grid axis 1)
+K_MAX = 16       # largest k the carried best list supports
+_BIG = 3.4e38    # empty-slot distance (matches ops/knn._INF)
 
 
-@jax.jit
-def _lanemin_keys(q: jax.Array, ct: jax.Array, n_tiles: jax.Array) -> jax.Array:
-    """n_tiles: (2,) int32 = (valid query tiles, valid candidate tiles).
+def _kp(k: int) -> int:
+    """Best-list width: the next power of two >= k (at least 2)."""
+    return max(2, 1 << (k - 1).bit_length())
 
-    Tiles past the valid counts are skipped: their index maps clamp to the
-    last valid tile (Pallas elides the repeated-block DMA) and ``pl.when``
-    elides the compute, so kernel time scales with live occupancy rather
-    than padded capacity — the gathered submap buffers are usually mostly
-    padding (laser_mapping.h:113-122 sizes vs. post-voxel occupancy).
-    """
-    m_pad, n_pad = q.shape[0], ct.shape[1]
-    grid = (m_pad // TM, n_pad // TN)
+
+def _kernel(q_ref, c_ref, tiles_ref, cnt_ref, d_ref, i_ref, *, k: int):
+    i, s = pl.program_id(0), pl.program_id(1)
+    kp = d_ref.shape[-1]
+    qx, qy, qz = q_ref[0, :], q_ref[1, :], q_ref[2, :]            # (BM,)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (BM, kp), 1)
+    col = jax.lax.broadcasted_iota(jnp.int32, (BM, BN), 1)
+    # Slots >= k hold -1: never the row maximum, so never replaced, and the
+    # row maximum over the list is the k-th best distance.
+    best_d = jnp.where(lane < k, jnp.float32(_BIG), jnp.float32(-1.0))
+    best_i = jnp.zeros((BM, kp), jnp.int32)
+    n_live = cnt_ref[i]
+    n_mine = jnp.maximum(n_live - s + SPLITS - 1, 0) // SPLITS
+
+    def tile(u, carry):
+        best_d, best_i = carry
+        j = tiles_ref[i, s + u * SPLITS]
+        sl = pl.ds(j * BN, BN)
+        cx, cy, cz = c_ref[0, sl], c_ref[1, sl], c_ref[2, sl]     # (BN,)
+        dx = qx[:, None] - cx[None, :]
+        dy = qy[:, None] - cy[None, :]
+        dz = qz[:, None] - cz[None, :]
+        d2 = dx * dx + dy * dy + dz * dz                           # (BM, BN)
+        worst = jnp.max(best_d, axis=1)
+        d2 = jnp.where(d2 < worst[:, None], d2, jnp.inf)
+        mn = jnp.min(d2, axis=1)
+
+        def more(c):
+            r, _, mn, bd, _ = c
+            return (r < k) & (jnp.min(mn - jnp.max(bd, axis=1)) < 0.0)
+
+        def take(c):
+            r, d2, mn, bd, bi = c
+            at = jnp.min(jnp.where(d2 == mn[:, None], col, BN), axis=1)   # (BM,)
+            wmax = jnp.max(bd, axis=1)
+            pos = jnp.min(jnp.where(bd == wmax[:, None], lane, kp), axis=1)
+            hit = (lane == pos[:, None]) & (mn < wmax)[:, None]
+            bd = jnp.where(hit, mn[:, None], bd)
+            bi = jnp.where(hit, (j * BN + at)[:, None], bi)
+            d2 = jnp.where(col == at[:, None], jnp.inf, d2)
+            return r + 1, d2, jnp.min(d2, axis=1), bd, bi
+
+        _, _, _, best_d, best_i = jax.lax.while_loop(
+            more, take, (jnp.int32(0), d2, mn, best_d, best_i))
+        return best_d, best_i
+
+    best_d, best_i = jax.lax.fori_loop(0, n_mine, tile, (best_d, best_i))
+    d_ref[...] = best_d
+    i_ref[...] = best_i
+
+
+@functools.partial(jax.jit, static_argnames=("k", "interpret"))
+def _knn_call(qt, ct, tiles, cnt, k: int, interpret: bool = False):
+    """qt: (4, M_pad) query rows x/y/z/0; ct: (4, N_pad) candidate rows with
+    +inf coordinates for masked entries; tiles: (M_pad // BM, n_tiles) live
+    tile ids first; cnt: (M_pad // BM,) live tile count per query block.
+    Returns per-split best lists (SPLITS, M_pad, KP) of d2 and indices."""
+    m_pad = qt.shape[1]
+    kp = _kp(k)
+    nb = m_pad // BM
     return pl.pallas_call(
-        _knn_kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((TM, 8), lambda i, j, nt: (jnp.minimum(i, nt[0] - 1), 0)),
-                pl.BlockSpec((8, TN), lambda i, j, nt: (0, jnp.minimum(j, nt[1] - 1))),
-            ],
-            out_specs=pl.BlockSpec((TM, _LANES), lambda i, j, nt: (i, 0)),
-        ),
-        out_shape=jax.ShapeDtypeStruct((m_pad, _LANES), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=9 * m_pad * n_pad,
-            bytes_accessed=(m_pad + n_pad) * 32 + m_pad * _LANES * 4,
-            transcendentals=0,
-        ),
-    )(n_tiles, q, ct)
-
-
-def _pair_decode(t, qa_t, ca_t, cb_t):
-    """Flat grid step -> (query tile i, cand tile j) covering group A's
-    qa_t x ca_t block then group B's block, row-major by query tile — each
-    query tile's candidate visits stay consecutive (output revisit rule)."""
-    a_total = qa_t * ca_t
-    in_a = t < a_total
-    i = jnp.where(in_a, t // ca_t, qa_t + (t - a_total) // cb_t)
-    j = jnp.where(in_a, t % ca_t, ca_t + (t - a_total) % cb_t)
-    j0 = jnp.where(in_a, t % ca_t, (t - a_total) % cb_t)   # j local to group
-    return i, j, j0, in_a
-
-
-def _grouped_kernel(qa_tiles: int, ca_tiles: int, cb_tiles: int):
-    """Kernel for two independent (query set, candidate set) problems fused
-    into ONE flat-grid launch of exactly qa*ca + qb*cb tile steps — the same
-    tile work as two separate launches, sharing scheduling and the epilogue.
-
-    ``sched_ref`` carries one int32 per flat step: low 16 bits = the global
-    candidate col-block this step should load (a spatially-pruned step repeats
-    the previous surviving block, so its DMA is elided), bit 16 = survive flag
-    (box-distance pruning; see the ``prune_radius`` contract in
-    knn_lanemin_pair)."""
-
-    def kernel(nt_ref, sched_ref, q_ref, ct_ref, out_ref):
-        t = pl.program_id(0)
-        i, j, j0, in_a = _pair_decode(t, qa_tiles, ca_tiles, cb_tiles)
-        q_ok = jnp.where(in_a, i < nt_ref[0], i - qa_tiles < nt_ref[1])
-        c_ok = jnp.where(in_a, j0 < nt_ref[2], j0 < nt_ref[3])
-        active = q_ok & c_ok & (sched_ref[t] > 0xFFFF)
-
-        @pl.when(j0 == 0)
-        def _():
-            out_ref[:] = jnp.full_like(out_ref, jnp.iinfo(jnp.int32).max)
-
-        @pl.when(active)
-        def _():
-            qx, qy, qz = q_ref[:, 0:1], q_ref[:, 1:2], q_ref[:, 2:3]
-            cx, cy, cz = ct_ref[0:1, :], ct_ref[1:2, :], ct_ref[2:3, :]
-            dx, dy, dz = qx - cx, qy - cy, qz - cz
-            d2 = dx * dx + dy * dy + dz * dz
-            bits = jax.lax.bitcast_convert_type(d2, jnp.int32)
-            n_groups = TN // _LANES
-            acc = None
-            for r in range(n_groups):
-                # active => the loaded block IS block j (cummax maps a
-                # surviving step to itself), so the group id stays j-based.
-                g = j * n_groups + r
-                key = (bits[:, r * _LANES:(r + 1) * _LANES] & ~_GMASK) | g
-                acc = key if acc is None else jnp.minimum(acc, key)
-            out_ref[:] = jnp.minimum(out_ref[:], acc)
-
-    return kernel
+        functools.partial(_kernel, k=k),
+        grid=(nb, SPLITS),
+        in_specs=[
+            pl.BlockSpec((4, BM), lambda i, s: (0, i)),
+            pl.BlockSpec(ct.shape, lambda i, s: (0, 0)),
+            pl.BlockSpec(tiles.shape, lambda i, s: (0, 0)),
+            pl.BlockSpec(cnt.shape, lambda i, s: (0,)),
+        ],
+        out_specs=[
+            pl.BlockSpec((None, BM, kp), lambda i, s: (s, i, 0)),
+            pl.BlockSpec((None, BM, kp), lambda i, s: (s, i, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((SPLITS, m_pad, kp), jnp.float32),
+            jax.ShapeDtypeStruct((SPLITS, m_pad, kp), jnp.int32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        interpret=interpret,
+        name="knn_fused",
+    )(qt, ct, tiles, cnt)
 
 
 def _box_dist2(qlo, qhi, clo, chi):
-    """Squared distance between axis-aligned boxes (blocks x tiles, 3)."""
+    """Squared distance between axis-aligned boxes (blocks x tiles)."""
     gap = jnp.maximum(
         0.0, jnp.maximum(qlo[:, None] - chi[None], clo[None] - qhi[:, None])
     )
     return jnp.sum(gap * gap, axis=-1)
 
 
-def _block_aabb(x, valid, n_blocks, tile):
-    """(n, 3) + (n,) bool -> per-block (lo, hi); empty blocks get +inf/-inf
-    (their box distance is +inf, so they never survive pruning)."""
-    xb = x.reshape(n_blocks, tile, 3)
-    vb = valid.reshape(n_blocks, tile, 1)
+def _block_aabb(x, valid, tile):
+    """(n, 3) + (n,) bool -> per-block (lo, hi); empty blocks get +inf/-inf,
+    so their box distance is +inf and they never survive pruning."""
+    xb = x.reshape(-1, tile, 3)
+    vb = valid.reshape(-1, tile, 1)
     lo = jnp.min(jnp.where(vb, xb, jnp.inf), axis=1)
     hi = jnp.max(jnp.where(vb, xb, -jnp.inf), axis=1)
     return lo, hi
 
 
-def knn_lanemin_pair(
-    qa: jax.Array, ca: jax.Array, ma: jax.Array, ka: int,
-    qb: jax.Array, cb: jax.Array, mb: jax.Array, kb: int,
-    a_counts: tuple = (None, None),   # (query_count, cand_count) group A
-    b_counts: tuple = (None, None),
-    prune_radius: tuple = (None, None),
-    _force_tpu_path: bool = False,    # tests: run the kernel under interpret mode
-) -> tuple[tuple[jax.Array, jax.Array], tuple[jax.Array, jax.Array]]:
-    """Two independent k-NN problems in ONE kernel launch + ONE epilogue.
-
-    Used by the mapping correspondence pass (corner 5-NN vs the corner
-    submap AND surf 5-NN vs the surf submap per outer iteration): fusing
-    halves the fixed per-launch and per-epilogue costs.  Shapes must be
-    TM/TN-aligned (the mapping stack/submap caps are).  Same approximation
-    contract as knn_lanemin; combined padded candidates must fit the 9-bit
-    group id space (<= 65536).
-
-    ``prune_radius`` (per group, static float or None): radius-clamped search.
-    A (query block, candidate tile) step is skipped when the axis-aligned
-    bounding boxes are farther than the radius apart, and neighbours beyond
-    the radius may be reported as d2 = +inf.  Every true neighbour within the
-    radius is still found per the lane-class contract, so any consumer that
-    gates correspondences at d2 < r^2 (the mapping fits gate at
-    neighbor_dist_sq = 1 m^2, laser_mapping.cpp:557,642, and the insert-dedup
-    gate at <= 0.4^2) gets exactly the ungated result.  Pruning pays off when
-    queries and candidates are spatially sorted (Morton order) so blocks are
-    compact — see laser_mapping.mapping_step."""
-    ma_n, na = qa.shape[0], ca.shape[0]
-    mb_n, nb = qb.shape[0], cb.shape[0]
-    na_p, nb_p = -(-na // TN) * TN, -(-nb // TN) * TN
-    fits = na_p + nb_p <= _LANES * (1 << _GBITS) and ka <= _LANES and kb <= _LANES
-    if not fits and jax.default_backend() not in ("cpu", "gpu"):
-        # Silent fallback here would quietly cost ~10x on the hot path — e.g.
-        # raising the submap caps past the 9-bit group-id space (65536 padded
-        # candidates combined) drops the fused TPU kernel for the XLA sweep.
-        import warnings
-
-        warnings.warn(
-            f"knn_lanemin_pair: padded candidates {na_p}+{nb_p} exceed the "
-            f"{_LANES * (1 << _GBITS)} group-id space (or k > {_LANES}); "
-            "falling back to the XLA knn sweep (much slower on TPU). "
-            "Reduce submap/stack caps to restore the fused kernel.",
-            stacklevel=2,
-        )
-    if (jax.default_backend() in ("cpu", "gpu") and not _force_tpu_path) or not fits:
-        from vloam_tpu.ops.knn import knn
-
-        return (
-            knn(qa, ca, ma, ka, cand_count=a_counts[1], query_count=a_counts[0]),
-            knn(qb, cb, mb, kb, cand_count=b_counts[1], query_count=b_counts[0]),
-        )
-
-    # Unaligned inputs are zero-padded (pad queries return sliced-off rows;
-    # pad candidates are masked out and clamped away in the epilogue).
-    def padq(q, count, m):
-        m_pad = -(-m // TM) * TM
-        if m_pad != m:
-            q = jnp.concatenate([q, jnp.zeros((m_pad - m, 3), q.dtype)])
-            count = jnp.int32(m) if count is None else count
-        return q, count, m_pad
-
-    def padc(c, msk, n, n_pad):
-        if n_pad != n:
-            c = jnp.concatenate([c, jnp.zeros((n_pad - n, 3), c.dtype)])
-            msk = jnp.concatenate([msk, jnp.zeros((n_pad - n,), bool)])
-        return c, msk
-
-    qa, a_qcount, ma_p = padq(qa, a_counts[0], ma_n)
-    qb, b_qcount, mb_p = padq(qb, b_counts[0], mb_n)
-    ca, ma = padc(ca, ma, na, na_p)
-    cb, mb = padc(cb, mb, nb, nb_p)
-    a_counts = (a_qcount, a_counts[1])
-    b_counts = (b_qcount, b_counts[1])
-    ma_orig, mb_orig, na_orig, nb_orig = ma_n, mb_n, na, nb
-    ma_n, mb_n, na, nb = ma_p, mb_p, na_p, nb_p
-
-    def center_of(c, m):
-        lo = jnp.min(jnp.where(m[:, None], c, jnp.inf), axis=0)
-        hi = jnp.max(jnp.where(m[:, None], c, -jnp.inf), axis=0)
-        return jnp.where(jnp.isfinite(lo), 0.5 * (lo + hi), 0.0)
-
-    cen_a = center_of(ca, ma)
-    cen_b = center_of(cb, mb)
-    q8 = jnp.zeros((ma_n + mb_n, 8), jnp.float32)
-    q8 = q8.at[:ma_n, :3].set(qa - cen_a).at[ma_n:, :3].set(qb - cen_b)
-    ct = jnp.full((8, na + nb), SENTINEL, jnp.float32)
-    ct = ct.at[:3, :na].set(jnp.where(ma[:, None], ca - cen_a, SENTINEL).T)
-    ct = ct.at[:3, na:].set(jnp.where(mb[:, None], cb - cen_b, SENTINEL).T)
-    ct = ct.at[3:, :].set(0.0)
-
-    def tiles(count, total, tile):
-        if count is None:
-            return jnp.int32(total)
-        return jnp.clip((count.astype(jnp.int32) + tile - 1) // tile, 1, total).astype(jnp.int32)
-
-    qa_t, ca_t = ma_n // TM, na // TN
-    qb_t, cb_t = mb_n // TM, nb // TN
-    nt = jnp.stack([
-        tiles(a_counts[0], qa_t, TM), tiles(b_counts[0], qb_t, TM),
-        tiles(a_counts[1], ca_t, TN), tiles(b_counts[1], cb_t, TN),
-    ])
-
-    grid = (qa_t * ca_t + qb_t * cb_t,)
-
-    def group_sched(r, q, qcount, m_n, c, cmask, q_tiles, c_tiles, col_base):
-        """(q_tiles * c_tiles,) int32 schedule for one group: low 16 bits =
-        global col block to load, bit 16 = survive."""
-        iota_c = jnp.arange(c_tiles, dtype=jnp.int32)
-        if r is None:
-            surv = jnp.ones((q_tiles, c_tiles), bool)
-        else:
-            qvalid = (
-                jnp.arange(m_n) < qcount if qcount is not None
-                else jnp.ones((m_n,), bool)
-            )
-            qlo, qhi = _block_aabb(q, qvalid, q_tiles, TM)
-            clo, chi = _block_aabb(c, cmask, c_tiles, TN)
-            surv = _box_dist2(qlo, qhi, clo, chi) <= jnp.float32(r) ** 2
-        # Pruned steps repeat the last surviving block (cummax) so their DMA
-        # is elided; a row with no survivor yet repeats block 0.
-        jm = jax.lax.cummax(jnp.where(surv, iota_c[None, :], 0), axis=1)
-        return ((jm + col_base) | (surv.astype(jnp.int32) << 16)).reshape(-1)
-
-    sched = jnp.concatenate([
-        group_sched(prune_radius[0], q8[:ma_n, :3], a_counts[0], ma_n,
-                    ct[:3, :na].T, ma, qa_t, ca_t, 0),
-        group_sched(prune_radius[1], q8[ma_n:, :3], b_counts[0], mb_n,
-                    ct[:3, na:].T, mb, qb_t, cb_t, ca_t),
-    ])
-
-    def q_map(t, nt_, sched_):
-        i, _, _, in_a = _pair_decode(t, qa_t, ca_t, cb_t)
-        lim = jnp.where(in_a, nt_[0] - 1, qa_t + nt_[1] - 1)
-        return (jnp.minimum(i, lim), 0)
-
-    def c_map(t, nt_, sched_):
-        _, _, _, in_a = _pair_decode(t, qa_t, ca_t, cb_t)
-        col = sched_[t] & 0xFFFF
-        col = jnp.where(
-            in_a,
-            jnp.minimum(col, nt_[2] - 1),
-            jnp.minimum(col - ca_t, nt_[3] - 1) + ca_t,
-        )
-        return (0, col)
-
-    def o_map(t, nt_, sched_):
-        i, _, _, _ = _pair_decode(t, qa_t, ca_t, cb_t)
-        return (i, 0)
-
-    keys = pl.pallas_call(
-        _grouped_kernel(qa_t, ca_t, cb_t),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((TM, 8), q_map),
-                pl.BlockSpec((8, TN), c_map),
-            ],
-            out_specs=pl.BlockSpec((TM, _LANES), o_map),
-        ),
-        out_shape=jax.ShapeDtypeStruct((ma_n + mb_n, _LANES), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=9 * (ma_n * na + mb_n * nb),
-            bytes_accessed=(ma_n + mb_n + na + nb) * 32,
-            transcendentals=0,
-        ),
-    )(nt, sched, q8, ct)
-
-    k = max(ka, kb)
-    neg, lane = jax.lax.top_k(-keys, k)
-    kk = -neg
-    d2 = jax.lax.bitcast_convert_type(kk & ~_GMASK, jnp.float32)
-    # Lanes never written (query tile skipped, or every candidate tile pruned
-    # for this block) hold int32-max keys that decode to NaN; report +inf so
-    # distance gates reject and the insert-dedup "no neighbour nearby" branch
-    # still fires (NaN would silently fail BOTH comparisons).
-    d2 = jnp.where(jnp.isnan(d2), jnp.inf, d2)
-    idx = (kk & _GMASK) * _LANES + lane
-    d2a = d2[:ma_orig, :ka]
-    idx_a = jnp.minimum(idx[:ma_orig, :ka], na_orig - 1).astype(jnp.int32)
-    d2b = d2[ma_n:ma_n + mb_orig, :kb]
-    idx_b = jnp.clip(idx[ma_n:ma_n + mb_orig, :kb] - na, 0, nb_orig - 1).astype(jnp.int32)
-    return (d2a, idx_a), (d2b, idx_b)
+def _tile_lists(q, q_valid, c, c_valid, prune_radius):
+    """Per query block: the ids of the candidate tiles it must visit, live
+    ones first, and how many are live.  A tile is live when both it and the
+    block hold a valid point and (with ``prune_radius``) their boxes are
+    within the radius."""
+    qlo, qhi = _block_aabb(q, q_valid, BM)
+    clo, chi = _block_aabb(c, c_valid, BN)
+    live = jnp.any(q_valid.reshape(-1, BM), axis=1)[:, None] & \
+        jnp.any(c_valid.reshape(-1, BN), axis=1)[None, :]
+    if prune_radius is not None:
+        live = live & (_box_dist2(qlo, qhi, clo, chi) <= jnp.float32(prune_radius) ** 2)
+    order = jnp.argsort(~live, axis=1, stable=True).astype(jnp.int32)
+    return order, jnp.sum(live, axis=1, dtype=jnp.int32)
 
 
-def _pad_to(x: jax.Array, n: int, value: float) -> jax.Array:
+def _pad_rows(x: jax.Array, n: int, value) -> jax.Array:
     if x.shape[0] == n:
         return x
     return jnp.concatenate(
-        [x, jnp.full((n - x.shape[0],) + x.shape[1:], value, x.dtype)]
-    )
+        [x, jnp.full((n - x.shape[0],) + x.shape[1:], value, x.dtype)])
 
 
-def knn_lanemin(
+def knn_fused(
     query: jax.Array,       # (M, 3)
     cand: jax.Array,        # (N, 3)
     cand_mask: jax.Array,   # (N,) bool
     k: int,
-    cand_count: jax.Array | None = None,   # () int32 valid-prefix length of cand
-    query_count: jax.Array | None = None,  # () int32 valid-prefix length of query
+    query_count: jax.Array | None = None,   # () valid-prefix length of query
+    prune_radius: float | None = None,
+    interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
-    """k nearest candidates per query: (sqdist (M, k), idx (M, k)).
+    """Exact k nearest valid candidates per query: (d2 (M, k), idx (M, k)),
+    d2 ascending.  See the module docstring for the contract.
 
-    TPU-only (callers dispatch; ops/knn.py falls back to XLA elsewhere).
-    Approximate per the lane-class contract in the module docstring.
-
-    ``cand_count`` / ``query_count`` are optional *dynamic* valid-prefix
-    lengths (buffers must be prefix-compacted, as the submap cache and
-    feature stacks are): tiles wholly past a count are skipped inside the
-    kernel, so time scales with occupancy, not capacity.  Queries past
-    ``query_count`` return d2 = NaN (all gates reject).
-    """
+    ``query_count``: queries at or past it are skipped (d2 = 3.4e38).
+    ``interpret``: run the kernel in the Pallas interpreter (CPU tests).
+    Raises ValueError for k outside [1, K_MAX]."""
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"knn_fused supports 1 <= k <= {K_MAX}, got k={k}")
     m, n = query.shape[0], cand.shape[0]
-    m_pad = -(-m // TM) * TM
-    n_pad = -(-n // TN) * TN
-    assert n_pad <= _LANES * (1 << _GBITS), "N exceeds 9-bit group id space"
-    assert k <= _LANES
+    m_pad = -(-m // BM) * BM
+    n_pad = -(-n // BN) * BN
+    q_valid = jnp.arange(m_pad) < (m if query_count is None else query_count)
+    q = _pad_rows(query.astype(jnp.float32), m_pad, 0.0)
+    c_valid = _pad_rows(cand_mask, n_pad, False)
+    c = _pad_rows(cand.astype(jnp.float32), n_pad, 0.0)
+    tiles, cnt = _tile_lists(q, q_valid, c, c_valid, prune_radius)
 
-    def tiles(count, total_tiles, tile):
-        if count is None:
-            return jnp.int32(total_tiles)
-        c = jnp.clip((count.astype(jnp.int32) + tile - 1) // tile, 1, total_tiles)
-        return c.astype(jnp.int32)
-
-    n_tiles = jnp.stack(
-        [tiles(query_count, m_pad // TM, TM), tiles(cand_count, n_pad // TN, TN)]
-    )
-
-    # Rebase to the candidate bounding-box centre: keeps the squared terms
-    # small at the km-scale world coordinates of long KITTI sequences (the
-    # difference form is robust anyway; this bounds the residual f32
-    # rounding of d2 itself at ~1e-3 m^2 for 1 m-gate neighbours).
-    lo = jnp.min(jnp.where(cand_mask[:, None], cand, jnp.inf), axis=0)
-    hi = jnp.max(jnp.where(cand_mask[:, None], cand, -jnp.inf), axis=0)
-    center = jnp.where(jnp.isfinite(lo), 0.5 * (lo + hi), 0.0)
-    qc = (query - center).astype(jnp.float32)
-    cc = jnp.where(cand_mask[:, None], (cand - center), SENTINEL)
-
-    q8 = jnp.zeros((m_pad, 8), jnp.float32).at[:m, :3].set(qc)
-    ct = jnp.full((8, n_pad), SENTINEL, jnp.float32).at[:3, :n].set(
-        cc.astype(jnp.float32).T).at[3:, :].set(0.0)
-
-    keys = _lanemin_keys(q8, ct, n_tiles)[:m]         # (M, 128) int32
-
-    neg, lane = jax.lax.top_k(-keys, k)               # smallest keys
-    kk = -neg
-    d2 = jax.lax.bitcast_convert_type(kk & ~_GMASK, jnp.float32)
-    idx = (kk & _GMASK) * _LANES + lane
+    qt = jnp.zeros((4, m_pad), jnp.float32).at[:3].set(q.T)
+    ct = jnp.zeros((4, n_pad), jnp.float32).at[:3].set(
+        jnp.where(c_valid[:, None], c, jnp.inf).T)
+    d, i = _knn_call(qt, ct, tiles, cnt, k, interpret)       # (SPLITS, M_pad, KP)
+    kp = d.shape[-1]
+    lane = jnp.arange(SPLITS * kp) % kp
+    d = jnp.moveaxis(d, 0, 1).reshape(m_pad, SPLITS * kp)
+    i = jnp.moveaxis(i, 0, 1).reshape(m_pad, SPLITS * kp)
+    d = jnp.where(lane[None, :] < k, d, jnp.float32(_BIG))    # drop the -1 pad slots
+    neg, pos = jax.lax.top_k(-d[:m], k)
+    idx = jnp.take_along_axis(i[:m], pos, axis=1)
+    d2 = jnp.where(q_valid[:m, None], -neg, jnp.float32(_BIG))
     return d2, jnp.minimum(idx, n - 1).astype(jnp.int32)

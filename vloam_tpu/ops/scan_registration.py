@@ -6,7 +6,7 @@ NaN/min-range filtering, per-point ring ID from vertical angle, azimuth
 relative-time, 11-point curvature, and the per-(ring x sector) greedy
 edge/planar selection with +-5 neighbour suppression.
 
-TPU re-design decisions:
+Re-design decisions:
   * The cloud lives on a dense ``(n_scans, ring_cap)`` grid — points keep
     their scan order inside each ring (one stable sort), so the curvature
     window and neighbour suppression become pure shifts along the ring axis.
@@ -306,18 +306,12 @@ def extract_features_from_grid(
     RS = R * S
     ring_row = jnp.repeat(jnp.arange(R, dtype=jnp.int32), S)   # (RS,)
 
-    # On TPU ``approx_max_k`` rides the PartialReduce unit (~4x the full-sort
-    # top_k); at k=64 of 2048 its recall is ~1.0 and the aggregate_to_topk
-    # epilogue keeps the descending order the greedy rounds rely on.
-    if jax.default_backend() in ("cpu", "gpu"):
-        _top = lambda s: jax.lax.top_k(s, NCAND)
-    else:
-        _top = lambda s: jax.lax.approx_max_k(s, NCAND, recall_target=0.95)
+    # top_k returns descending order, which the greedy rounds rely on.
+    _top = lambda s: jax.lax.top_k(s, NCAND)
 
     # Suppression reach rides in the score's 6 low mantissa bits (3 bits each
     # way; reach <= neighbor_suppression = 5), so the greedy rounds and the
-    # edge->flat cross-suppression never gather from the (R, C) reach grids —
-    # TPU gathers are serial row loads and were ~1 ms/frame of pure indexing.
+    # edge->flat cross-suppression never gather from the (R, C) reach grids.
     # The perturbation is < 2^-17 relative, far below curvature noise.
     _RB = 3
     _RMASK = (1 << (2 * _RB)) - 1

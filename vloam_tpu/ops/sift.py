@@ -4,7 +4,7 @@ Parity target: the reference's ``DetectorType::SIFT`` / ``DescriptorType::SIFT``
 alternatives (image_util.cpp:104-108,316-320 via cv::SIFT::create) and the
 FLANN float matcher (image_util.cpp:366-378).
 
-TPU formulation — everything fixed-shape, batched over keypoints:
+Formulation — everything fixed-shape, batched over keypoints:
   * the Gaussian/DoG pyramid is a stack of separable convolutions per octave
     (static octave count, so XLA sees a fixed op graph);
   * scale-space extrema = two shifted-min/max passes over (levels, H, W)
@@ -12,7 +12,7 @@ TPU formulation — everything fixed-shape, batched over keypoints:
   * per-octave ``approx_max_k`` keeps a fixed keypoint budget, merged across
     octaves with octave-id bookkeeping;
   * orientation + descriptor sample a rotated 16x16 gradient grid with the
-    36-bin pre-rotated sampling bank (one bf16 MXU matmul + one-hot select;
+    36-bin pre-rotated sampling bank (one bf16 matmul + one-hot select;
     exactly lossless because the orientation is already a 36-bin histogram
     peak) and soft-bin into the classic 4x4x8 histogram as one einsum.
 
@@ -182,9 +182,7 @@ def _gather_patches_multi_octave(octs, kp: SiftKeypoints):
         # middle Gaussian level approximates each keypoint's own level: the
         # descriptor is normalised, so the residual blur difference washes out
         img_o = g[S // 2 + 1]
-        from vloam_tpu.ops.pallas_gather import gather_patches
-
-        p = gather_patches(img_o, corner, PATCH)
+        p = _slice_patches(img_o, corner, PATCH)
         out = jnp.where((kp.octave == o)[:, None, None], p, out)
     return out
 
@@ -250,9 +248,8 @@ def describe(octs, kp: SiftKeypoints) -> tuple[jax.Array, jax.Array]:
     gx, gy = _patch_grads(patches)
     N = kp.pts.shape[0]
 
-    # rotated sample grid: ONE bf16 MXU matmul against the 36-bin sampling
-    # bank + a one-hot bin select (the per-keypoint bilinear gathers this
-    # replaces ran ~8.5 ns/serial element — most of SIFT's 29 ms frame)
+    # rotated sample grid: ONE bf16 matmul against the 36-bin sampling
+    # bank + a one-hot bin select instead of per-keypoint bilinear gathers
     u = (jnp.arange(DESC_GRID, dtype=jnp.float32) + 0.5) / DESC_GRID - 0.5
     gu, gv = jnp.meshgrid(u, u, indexing="xy")          # (G, G)
     c, s = jnp.cos(kp.angle), jnp.sin(kp.angle)
@@ -327,7 +324,7 @@ def match_float_descriptors(
     ratio: float = 0.8,
     select: str = "knn",
 ) -> tuple[jax.Array, jax.Array]:
-    """L2 matching for float descriptors (SIFT), MXU-native.
+    """L2 matching for float descriptors (SIFT) as one matmul.
 
     |a-b|^2 = |a|^2 + |b|^2 - 2 a.b — one (N0, N1) matmul.  ``select`` as in
     orb.match_descriptors: "knn" = 2-NN + Lowe ratio, "nn" = mutual NN.
@@ -361,7 +358,7 @@ def match_float_descriptors_approx(
     """FLANN-equivalent approximate float matcher (MatcherType::FLANN,
     image_util.cpp:366-378).
 
-    OpenCV FLANN builds randomized kd-trees; the TPU-native analogue is a
+    OpenCV FLANN builds randomized kd-trees; the fixed-shape analogue is a
     random-projection prefilter: distances in a ``proj_dim``-dim sketch
     (one small matmul) select ``rerank`` candidates per query, exact L2
     re-ranks only those.  O(N^2 * proj_dim) + O(N * rerank * D) instead of

@@ -61,3 +61,28 @@ def inverse_23_residual(pose: jax.Array, xbar0: jax.Array, X1: jax.Array) -> jax
         [Y[..., 0] - Y[..., 2] * xbar0[..., 0], Y[..., 1] - Y[..., 2] * xbar0[..., 1]],
         axis=-1,
     )
+
+
+def solve_pose_gn_vo(
+    pose0: jax.Array,        # (7,)
+    X0: jax.Array,           # (M, 3) unprojected previous-frame points
+    xb0: jax.Array,          # (M, 2) previous normalised rays
+    xb1: jax.Array,          # (M, 2) current normalised rays
+    has_depth: jax.Array,    # (M,) -> 3D-2D residual
+    no_depth: jax.Array,     # (M,) -> 2D-2D residual
+    iters: int,
+    huber_delta: float,
+    lm_lambda: float,
+) -> jax.Array:
+    """The VO GN solve (visual_odometry.cpp:400-482): 3D-2D reprojection
+    blocks where the previous pixel has depth, 2D-2D epipolar blocks
+    elsewhere, through ops/gauss_newton.solve_pose_gn."""
+    from vloam_tpu.ops.gauss_newton import solve_pose_gn
+
+    def residuals(p):
+        return (
+            (reproj_32_residual(p, X0, xb1), has_depth),
+            (epipolar_22_residual(p, xb0, xb1), no_depth),
+        )
+
+    return solve_pose_gn(residuals, pose0, iters, huber_delta, lm_lambda)

@@ -7,7 +7,7 @@ reduction (laser_mapping.cpp:491-500) and per-cube map re-filtering
 leaves, replace all points in a leaf with their centroid (all channels
 averaged, including intensity).
 
-TPU formulation: no hash maps, no dynamic sizes.  We quantise to integer
+Formulation: no hash maps, no dynamic sizes.  We quantise to integer
 voxel coordinates, pack them into one int32 key (bounded grids — the inputs
 are sensor-frame clouds or single 50 m cubes), sort once, and reduce
 segments with ``segment_sum``.  Output is a fixed-capacity buffer + mask.
@@ -86,16 +86,14 @@ def voxel_downsample(
     # clamped at 0 for any leading invalid prefix.  They must NOT be dumped
     # into a scrap segment: that made seg_id non-monotone wherever invalid
     # rows interleave valid runs (ring-grid padding), and segment_sum below
-    # declares indices_are_sorted=True — TPU's sorted-scatter lowering then
-    # silently misreduced, zeroing most less-flat centroids (CPU ignores the
-    # hint, which hid the bug from the unit suite).
+    # declares indices_are_sorted=True — a backend that exploits the hint
+    # then silently misreduces, zeroing most less-flat centroids (CPU
+    # ignores the hint, which hid such a bug from the unit suite once).
     seg_id = jnp.maximum(seg_id, 0)
 
-    # seg_id is monotone non-decreasing by construction — the sorted-indices
-    # lowering of segment_sum is ~35% faster than the general scatter-add.
-    # Counts ride as an extra ones-column in the SAME scatter: TPU scatter
-    # cost is per-update, not per-byte, so one (N, D+1) pass costs half of a
-    # (N, D) + (N,) pair.
+    # seg_id is monotone non-decreasing by construction, so the
+    # sorted-indices hint is true.  Counts ride as an extra ones-column in
+    # the SAME scatter: one (N, D+1) pass instead of a (N, D) + (N,) pair.
     aug = jnp.concatenate([pts_s, jnp.ones_like(pts_s[:, :1])], axis=1)
     sums5 = jax.ops.segment_sum(
         jnp.where(msk_s[:, None], aug, 0.0), seg_id, num_segments=n, indices_are_sorted=True

@@ -3,7 +3,7 @@
 The reference never revisits past poses (SURVEY §2: no BA, no loop
 closures); parallel/pose_graph.py accepts arbitrary relative-pose factors
 but round 2 shipped nothing that generates one.  This module closes that
-gap with the classic three-stage pipeline, TPU-style split:
+gap with the classic three-stage pipeline, split host/device:
 
   1. ``detect_revisits`` — HOST control plane: a proximity + temporal-gap
      gate over the estimated keyframe positions (cheap O(N^2) NumPy at
@@ -271,8 +271,7 @@ def register_loop(
     global peak aliases, so several basins must be tried).  Every candidate
     is refined and ARBITRATED BY tight_inlier_frac, not by the loose
     correspondence count (r04's count arbitration picked 25-78 m-wrong
-    poses on the ring drive and bent the interior, VALIDATION_r04
-    loop_drive_excl).  Acceptance = best tight fraction >= min_inlier_frac
+    poses on the ring drive and bent the interior).  Acceptance = best tight fraction >= min_inlier_frac
     and a finite pose; the returned count is the tight-inlier count (the
     driver's evidence weighting uses it).
     """

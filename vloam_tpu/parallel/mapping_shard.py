@@ -4,16 +4,15 @@ This is the capability the reference never had (single process, single
 thread — SURVEY.md §2 "parallelism: none"): the 21x21x11 cube map and its
 submap NN searches partition across devices.
 
-Design (TPU-first, collectives over ICI):
+Design:
   * Cube slot arrays shard along axis 0 ("map" axis).  Block-cyclic slot
     addressing already spreads any 5x5x3 submap window across shards almost
     uniformly (window slot ids are mod-grid, so consecutive cubes land on
     different shards) — every device does useful NN work every frame.
   * Per frame, each shard runs 5-NN for ALL query points against ITS OWN
-    window cubes using the same fused Pallas lane-min pair kernel as the
-    single-device path (ops/pallas_knn.py: both feature types in one launch,
-    valid-prefix tile counts, Morton-sorted candidates, AABB radius
-    pruning), then the per-shard top-5 merge across shards.
+    window cubes with the same k-NN as the single-device path (ops/knn.py:
+    Morton-sorted queries and candidates, radius pruning on the kernel
+    path), then the per-shard top-5 merge across shards.
   * The merge is a butterfly (recursive-doubling) all-reduce of the running
     top-k: log2(S) ppermute steps, each exchanging a fixed (M, k, 4) packet
     of neighbour xyz + d2.  Per-device traffic is O(M k log S) — NOT the
@@ -22,9 +21,8 @@ Design (TPU-first, collectives over ICI):
     scale linearly.  (Non-power-of-two meshes fall back to the flat
     all_gather merge; tools/bench_scaling.py reports measured per-S payload
     bytes for both schemes.)
-  * The line/plane fits and the fused Pallas GN solve (ops/pallas_gn.py,
-    analytic Jacobians + in-kernel 6x6 solves) are replicated — they cost
-    microseconds; cube insertion + the compacted-submap cache are
+  * The line/plane fits and the GN solve are replicated (6-DoF normal
+    equations over a few thousand residuals); cube insertion + the compacted-submap cache are
     shard-local (each shard keeps the points whose slot it owns, and caches
     the compacted window slice it will search next frame, rebuilding only
     when the robot crosses a cube boundary — exactly the single-device
@@ -47,6 +45,7 @@ from vloam_tpu import geometry as geo
 from vloam_tpu.config import VloamConfig
 from vloam_tpu.models.laser_mapping import (
     MapState,
+    _prune_radius,
     _refilter_cubes,
     _scatter_insert_pair,
     _submap_coords,
@@ -55,8 +54,8 @@ from vloam_tpu.models.laser_mapping import (
     fit_corner_lines,
     fit_surf_planes,
 )
-from vloam_tpu.ops.pallas_gn import solve_pose_gn_lidar
-from vloam_tpu.ops.pallas_knn import knn_lanemin_pair
+from vloam_tpu.ops.knn import compact_rows, knn, morton_sort
+from vloam_tpu.ops.lidar_factors import solve_pose_gn_lidar
 from vloam_tpu.ops.voxel import voxel_downsample
 
 _INF = jnp.float32(3.4e38)
@@ -75,8 +74,6 @@ def _local_window(state: MapState, coords, cfg, axis: str):
     own = (slots >= 0) & (slots < nc_local)
     slots_c = jnp.clip(slots, 0, nc_local - 1)
     fresh = jnp.all(jnp.take(state.cube_coord, slots_c, axis=0) == coords, axis=-1) & own
-
-    from vloam_tpu.ops.knn import compact_rows
 
     mc = cfg.mapping
     sub = jnp.take(state.cube_pts, slots_c, axis=0)        # (75, capT, 4)
@@ -147,7 +144,7 @@ def sharded_mapping_step(
     shard-local candidates — numerically WRONG (each shard associates only
     against its own cubes) but byte-identical compute otherwise, so
     (normal - ablated) step time isolates the collective's wall-clock share
-    (tools/bench_scaling.py --ablate-merge; VERDICT r4 #7)."""
+    (tools/bench_scaling.py --ablate-merge)."""
     mc = cfg.mapping
     pose0 = geo.pose_compose(state.wmap_wodom, pose_wodom)
 
@@ -160,15 +157,10 @@ def sharded_mapping_step(
         surf_in, surf_in_mask, mc.plane_resolution, mc.surf_stack_cap,
         max_grid=512, presorted=True,
     )
-    # Morton-sort the query stacks so AABB tile pruning in the pair kernel
-    # sees compact blocks (see laser_mapping.mapping_step for the rationale
-    # and the CPU-fallback exemption).
-    _tpu = jax.default_backend() not in ("cpu", "gpu")
-    if _tpu:
-        from vloam_tpu.ops.knn import morton_sort
-
-        corner_stack, cs_mask = morton_sort(corner_stack, cs_mask, cell=2.0)
-        surf_stack, ss_mask = morton_sort(surf_stack, ss_mask, cell=2.0)
+    # Morton-sort the query stacks so the k-NN box pruning sees compact
+    # blocks (see laser_mapping.mapping_step).
+    corner_stack, cs_mask = morton_sort(corner_stack, cs_mask, cell=2.0)
+    surf_stack, ss_mask = morton_sort(surf_stack, ss_mask, cell=2.0)
 
     center = cube_coord_of(geo.pose_t(pose0)[None, :], mc.cube_size)[0]
     coords = _submap_coords(center, cfg)
@@ -178,12 +170,9 @@ def sharded_mapping_step(
         # crosses a cube boundary (~50 m), appended shard-locally otherwise.
         def rebuild(_):
             (cp, cm), (sp, sm), _ = _local_window(state, coords, cfg, axis)
-            if _tpu:
-                from vloam_tpu.ops.knn import morton_sort
-
-                org = (center.astype(jnp.float32) * mc.cube_size)[None, :]
-                cp, cm = morton_sort(cp, cm, cell=4.0, origin=org)
-                sp, sm = morton_sort(sp, sm, cell=4.0, origin=org)
+            org = (center.astype(jnp.float32) * mc.cube_size)[None, :]
+            cp, cm = morton_sort(cp, cm, cell=4.0, origin=org)
+            sp, sm = morton_sort(sp, sm, cell=4.0, origin=org)
             return cp, jnp.sum(cm).astype(jnp.int32), sp, jnp.sum(sm).astype(jnp.int32)
 
         def cached(_):
@@ -206,21 +195,16 @@ def sharded_mapping_step(
     cs_n = jnp.sum(cs_mask, dtype=jnp.int32)
     ss_n = jnp.sum(ss_mask, dtype=jnp.int32)
     k = mc.n_neighbors
+    r_prune = _prune_radius(cfg)
 
     def optimize(pose):
         for _ in range(mc.outer_iters):
             qc = geo.pose_apply(pose, corner_stack[:, :3])
             qs = geo.pose_apply(pose, surf_stack[:, :3])
-            # Radius covers the max of the fit gate and the dedup gate so
-            # pruning stays exact for every consumer (see mapping_step).
-            r_dedup = mc.insert_dedup_factor * max(mc.line_resolution, mc.plane_resolution)
-            r_prune = max(float(mc.neighbor_dist_sq) ** 0.5, r_dedup) * 1.001
-            (d2c_l, idxc), (d2s_l, idxs) = knn_lanemin_pair(
-                qc, c_pts[:, :3], c_mask, k,
-                qs, s_pts[:, :3], s_mask, k,
-                a_counts=(cs_n, c_n), b_counts=(ss_n, s_n),
-                prune_radius=(r_prune, r_prune),
-            )
+            d2c_l, idxc = knn(qc, c_pts[:, :3], c_mask, k,
+                              query_count=cs_n, prune_radius=r_prune)
+            d2s_l, idxs = knn(qs, s_pts[:, :3], s_mask, k,
+                              query_count=ss_n, prune_radius=r_prune)
             nbr_c_l = jnp.take(c_pts[:, :3], idxc, axis=0)           # (M, k, 3)
             nbr_s_l = jnp.take(s_pts[:, :3], idxs, axis=0)
             if ablate_merge:
@@ -234,8 +218,7 @@ def sharded_mapping_step(
             p_e, a_e, b_e, v_e = fit_corner_lines(corner_stack, cs_mask, nbr_c, d2c, cfg)
             p_s, n_s, d_s, v_s = fit_surf_planes(surf_stack, ss_mask, nbr_s, d2s, cfg)
 
-            # Fits + GN are replicated after the merge (microsecond-scale);
-            # all 4 inner iterations fuse into one Pallas launch on TPU.
+            # Fits + GN are replicated after the merge.
             pose = solve_pose_gn_lidar(
                 pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
                 mc.inner_iters, mc.huber_delta, mc.lm_lambda,

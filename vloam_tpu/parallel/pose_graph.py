@@ -13,7 +13,7 @@ that evaluation:
 * ``optimize_pose_graph`` — arbitrary graphs: scatter-add the (6W, 6W)
   block system and solve densely.  O(W^3); fine for sliding windows of
   tens of poses.  With ``axis_name`` the factor set shards across a device
-  mesh and JtJ/Jtr psum over ICI — the distributed-BA reduction pattern
+  mesh and JtJ/Jtr psum across it — the distributed-BA reduction pattern
   (the Schur trick is unnecessary landmark-free: the pose system *is* the
   reduced system).
 * ``optimize_pose_graph_banded`` — the full-trajectory case (a chain plus

@@ -32,6 +32,8 @@ def main() -> None:
     p.add_argument("--end", type=int, default=None)
     p.add_argument("--frames", type=int, default=10, help="synthetic: number of frames")
     p.add_argument("--speed", type=float, default=0.8, help="synthetic: m/frame")
+    p.add_argument("--azimuth", type=int, default=900,
+                   help="synthetic: lidar azimuth steps per sweep (1800 ~ a KITTI sweep)")
     p.add_argument("--out", default=None, help="trajectory output directory")
     p.add_argument("--couple", action="store_true", help="coupled VO+LO mode (detach_VO_LO=false)")
     p.add_argument("--lidar-only", action="store_true", help="skip VO (A-LOAM mode)")
@@ -54,7 +56,7 @@ def main() -> None:
                         "keyframes.  Must be at least the course's observed "
                         "odometry drift rate or detection silently misses "
                         "(the 1949 m demo lap drifts 4.1%% and needs 0.05; "
-                        "0.02 detected nothing there, VALIDATION_r04)")
+                        "0.02 detected nothing there)")
     p.add_argument("--loop-min-gap", type=int, default=3,
                    help="minimum keyframe index gap for a revisit candidate")
     p.add_argument("--beams", type=int, default=64, choices=[16, 32, 64])
@@ -96,6 +98,10 @@ def main() -> None:
     args = p.parse_args()
 
     import dataclasses
+
+    from vloam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from vloam_tpu.config import hdl32, kitti_hdl64, vlp16
 
@@ -145,6 +151,7 @@ def main() -> None:
     if args.dataset == "synthetic":
         res = run_synthetic(
             cfg, n_frames=args.frames, speed=args.speed, out_dir=args.out,
+            n_azimuth=args.azimuth,
             verbose=not args.json, lidar_only=args.lidar_only, refine=args.refine,
             loop_closure=args.loop_closure, keyframe_every=args.keyframe_every,
             loop_kw=loop_kw,

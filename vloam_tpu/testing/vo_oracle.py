@@ -2,7 +2,7 @@
 
 Like testing/oracle.py (scan registration / LO association), this module
 re-implements the reference's SEQUENTIAL algorithms loops-and-all so the
-TPU reformulations in ops/depth_map.py and models/visual_odometry.py can be
+fixed-shape reformulations in ops/depth_map.py and models/visual_odometry.py can be
 measured against the original semantics:
 
   * ``PointCloudUtilOracle`` — projection (point_cloud_util.cpp:183-219),
